@@ -1,0 +1,89 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under parasuite_tpu_torch/csrc/*.cu are compiled by nvcc for
+sm_90a into one shared library with a plain C interface,
+parasuite_tpu_torch/build/libparasuite_cuda.so, loaded with ctypes. The
+build runs at first use (never at import) and again whenever the sources or
+flags change: a SHA-256 of both is stored beside the library.
+
+Every C entry point takes its pointers and the CUDA stream as void*, launches
+on that stream, and returns cudaGetLastError() so a refused launch is
+reported where it happened.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "build"
+LIB = BUILD / "libparasuite_cuda.so"
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib = None
+build_log = ""   # nvcc's output from the last build (ptxas register report)
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home:
+        return str(Path(cuda_home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return "/usr/local/cuda/bin/nvcc"
+
+
+def build() -> Path:
+    """Compile the kernels unless an up-to-date library exists. -> path."""
+    global build_log
+    stamp = BUILD / "libparasuite_cuda.sha256"
+    digest = _digest()
+    if LIB.exists() and stamp.exists() and stamp.read_text() == digest:
+        return LIB
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD / f"libparasuite_cuda.{os.getpid()}.so"
+    cmd = [nvcc_path(), *FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, LIB)
+    stamp.write_text(digest)
+    return LIB
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (building it first if needed)."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build()))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.ps_select_candidates.restype = i32
+    lib.ps_select_candidates.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr,
+                                         ptr]
+    lib.ps_extend_candidates.restype = i32
+    lib.ps_extend_candidates.argtypes = [ptr] * 6 + [i32] * 7 + [ptr] * 5
+    _lib = lib
+    return lib

@@ -1,0 +1,104 @@
+"""Candidate selection: the plain PyTorch version and the Hopper kernel.
+
+Replaces parasuite_tpu/ops/pallas_seed.py::_select_kernel (launched by
+select_candidates_pallas). Contract: parasuite_tpu/ops/aligner.py
+select_candidates — per oriented read, the top C unique diagonals by
+(votes desc, diag asc), votes = number of seeds on the same diagonal.
+
+Kernel (csrc/select_candidates.cu): one warp per oriented read. The row's n
+diagonals go to shared memory, padded with I32MAX to a power of two, and are
+bitonic-sorted there; run starts and run lengths (the votes) come from
+neighbour compares; C rounds of a warp-shuffle argmin over the packed int64
+key (-votes, diag) pick the winners, each knocked out after its round.
+
+What bounds it on the H100: nothing in memory — a row is n * 4 bytes
+(448 B at 7 seeds x 16 occurrences) read once, and the whole [2B, S*M] array
+at 65,536 reads is 59 MB. The cost is the log^2(n) compare-exchange passes
+of the sort, each a shared-memory round trip with a warp barrier, plus the
+C argmin rounds. The design keeps every step inside one warp (no block
+barriers, no global scratch) so warps on an SM interleave freely.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from parasuite_tpu.config import AlignConfig
+
+I32MAX = int(np.iinfo(np.int32).max)
+MAX_PAD = 1024   # row buffer per warp: 4 warps * 12 B/entry = 48 KB shared
+
+launches = 0     # kernel launches through select_candidates
+
+
+def select_candidates_plain(diags: torch.Tensor, cfg: AlignConfig):
+    """Transcription of aligner.py select_candidates.
+
+    The 2-key lax.sort becomes one sort of the packed int64 key
+    (negv << 32) + (diag + 2^31), which orders exactly like the
+    lexicographic (negv, diag) pair; equal keys are equal pairs, so no tie
+    order is relied upon."""
+    n = diags.shape[1]
+    d = torch.sort(diags, dim=1).values
+    t = torch.arange(n, dtype=torch.int32, device=diags.device)
+    first = torch.cat([torch.ones_like(d[:, :1], dtype=torch.bool),
+                       d[:, 1:] != d[:, :-1]], dim=1)
+    fidx = torch.where(first, t[None, :], n)
+    suffix_min = torch.flip(
+        torch.cummin(torch.flip(fidx[:, 1:], [1]), dim=1).values, [1])
+    next_first = torch.cat([suffix_min, torch.full_like(d[:, :1], n)], dim=1)
+    votes = next_first - t[None, :]
+    firstv = first & (d != I32MAX)
+    negv = torch.where(firstv, -votes, 1)
+    dd = torch.where(firstv, d, I32MAX)
+    key = (negv.to(torch.int64) << 32) + (dd.to(torch.int64) + (1 << 31))
+    ks = torch.sort(key, dim=1).values
+    C = cfg.max_candidates
+    negv_s = (ks >> 32)[:, :C]
+    dd_s = ((ks & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)[:, :C]
+    return dd_s, negv_s < 1
+
+
+def select_candidates(diags: torch.Tensor, cfg: AlignConfig):
+    """-> (cand_diag int32 [B2, C], cand_valid bool [B2, C]).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if diags.device.type == "cpu":
+        return select_candidates_plain(diags, cfg)
+    if diags.device.type != "cuda":
+        raise ValueError(f"select_candidates: unsupported device "
+                         f"{diags.device}")
+    if diags.dtype != torch.int32 or diags.dim() != 2:
+        raise ValueError("select_candidates: diags must be int32 [B2, n]")
+    if not diags.is_contiguous():
+        raise ValueError("select_candidates: diags must be contiguous")
+    rows, n = diags.shape
+    C = cfg.max_candidates
+    if n < C:
+        raise ValueError(f"select_candidates: n={n} diagonals per row is "
+                         f"fewer than max_candidates={C}")
+    n_pad = 32
+    while n_pad < n:
+        n_pad *= 2
+    if n_pad > MAX_PAD:
+        raise ValueError(f"select_candidates: n={n} exceeds the kernel's "
+                         f"{MAX_PAD}-entry row buffer")
+    cand = torch.empty((rows, C), dtype=torch.int32, device=diags.device)
+    valid = torch.empty((rows, C), dtype=torch.bool, device=diags.device)
+    if rows == 0:
+        return cand, valid
+    from parasuite_tpu_torch.ops._build import load
+
+    err = load().ps_select_candidates(
+        ctypes.c_void_p(diags.data_ptr()), rows, n, n_pad, C,
+        ctypes.c_void_p(cand.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream(diags.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"select_candidates kernel launch failed: CUDA "
+                           f"error {err}")
+    global launches
+    launches += 1
+    return cand, valid
