@@ -24,13 +24,30 @@ each prints one line, and any failure raises (exit code != 0):
      (launch counters), the outputs have the JAX package's digests
      (AT_SCALE), sensitivity and precision are within 0.002 of the JAX
      package's on the same reads (JAX_ACCURACY); device-step and
-     FASTQ->SAM reads/s beside the GPU's name and power limit.
+     FASTQ->SAM reads/s beside the GPU's name and power limit;
+  7. xa: `align --xa` on a 51 Mbp repeat-structured chr22-class genome
+     (write_xa_world), 131,072 reads of 50 bp; the SAM, the number of
+     XA-tagged records and xa_dropped equal the JAX package's (XA_PINNED);
+  8. rescue: `twopass --learned-gaps --rescue-kmer 11` to BAM on 131,072
+     reads of 36 bp with 3% substitutions on the bench reference
+     (write_rescue_reads); pass-1 SAM, .errorprofile, final SAM and the
+     rescue counters equal the JAX package's (RESCUE_PINNED), and both
+     kernels equal their plain versions at the rescue pass's shapes;
+  9. combined: `combine` on tools/bench_combined.py's world (an 8 Mbp
+     genome with 400 three-exon transcripts, write_combined_world), then
+     `twopass --learned-gaps` on its 262,144 reads and `align --xa` on the
+     first 16,384; the index files and every output equal the JAX package's
+     (COMBINED_PINNED); FASTQ->SAM reads/s of combined and plain mode
+     (`align` on a genome-only index) on the same reads.
+Phases 7-9 run through the port's CLI with --device cuda and check the exact
+kernel launch counts of their runs.
 
-Then one JSON line on the kernels, and as the last line
+Then one JSON line on the kernels (launches summed over phases 5-9), and as
+the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-The world is a pure function of the seeds, so the digests can be recomputed
-anywhere with the JAX package:
+The worlds are pure functions of the seeds, so the digests can be
+recomputed anywhere with the JAX package:
 
     python -c "import chip_smoke; chip_smoke.write_world('W')"
     python -m parasuite_tpu.cli index W/ref.fa W/idx FLAGS
@@ -44,8 +61,33 @@ anywhere with the JAX package:
         bam_to_sam('W/all.bam', 'W/all_tp.sam')"
     FLAGS = --max-read-len 50 --kmer-size 12 --max-candidates 8 --max-occ 16
 
+Phases 7-9 (RFLAGS = FLAGS with --max-read-len 36):
+
+    python -c "import chip_smoke as c; c.write_rescue_reads('W'); \\
+        c.write_xa_world('W/xa'); c.write_combined_world('W/comb')"
+    python -m parasuite_tpu.cli index W/xa/ref.fa W/xa/idx FLAGS
+    python -m parasuite_tpu.cli align W/xa/idx W/xa/reads.fastq W/xa/xa.sam \\
+        --xa --pg-cl smoke --batch-size 4096 --log W/xa/log FLAGS
+    python -m parasuite_tpu.cli twopass W/idx W/rescue.fastq W/rescue.bam \\
+        --learned-gaps --rescue-kmer 11 --pg-cl smoke --batch-size 16384 RFLAGS
+    python -c "from parasuite_tpu.io.bam import bam_to_sam; \\
+        bam_to_sam('W/rescue.bam', 'W/rescue_tp.sam')"
+    python -m parasuite_tpu.cli combine W/comb/ref.fa W/comb/exons.tsv \\
+        W/comb/cidx FLAGS
+    python -m parasuite_tpu.cli twopass W/comb/cidx W/comb/all.fastq \\
+        W/comb/tp.sam --learned-gaps --pg-cl smoke --batch-size 4096 FLAGS
+    python -m parasuite_tpu.cli align W/comb/cidx W/comb/xa.fastq \\
+        W/comb/xa.sam --xa --pg-cl smoke --batch-size 4096 FLAGS
+
+xa_dropped is the `align.done` event of W/xa/log; the JAX CLI prints no
+rescue counters, so RESCUE_PINNED's are the JAX engines' `rescue_mapped`
+and `rescue_overflow` summed over the run's two engines (read by wrapping
+parasuite_tpu.cli._load_engine).
+
 Outputs do not depend on the batch size, so the JAX runs use batches of
-4,096 reads (small enough for a CPU) and the port the world's 65,536.
+4,096 reads (small enough for a CPU) and the port the world's 65,536. The
+one exception is rescue: its batch is capped at max(256, batch / 8) rows,
+so both packages run it at RESCUE_BATCH.
 """
 
 from __future__ import annotations
@@ -72,6 +114,12 @@ N_PIN = 16_384              # reads pinned to the JAX package's digests
 N_ALL_N = 256
 BATCH = 65_536              # bench.BATCH_TPU
 PIN_BATCH = 4_096
+N_MODE_READS = 131_072      # reads of the xa and rescue phases
+RESCUE_LEN = 36
+RESCUE_BATCH = 16_384       # rescue output depends on the batch (its cap)
+COMB_GENOME = 8_000_000     # tools/bench_combined.py's world
+COMB_TX = 400
+COMB_DRAWN = 262_144        # reads drawn before spacer-straddlers drop
 FLAGS = ["--max-read-len", "50", "--kmer-size", "12", "--max-candidates",
          "8", "--max-occ", "16"]
 
@@ -108,6 +156,53 @@ JAX_ACCURACY = {
                 "precision": 0.9996571397752532},
 }
 ACCURACY_SLACK = 0.002
+RFLAGS = [*FLAGS, "--max-read-len", str(RESCUE_LEN)]
+# phases 7-9: the JAX package's outputs for the commands in the docstring
+# (inputs included, so a world that drifted is named as such)
+XA_PINNED = {
+    "xa/reads.fastq":
+        "6b55efc9d1b990d0ace00c933bc7310e6f8f58e41ce7f015c2208bf93b8f7c8c",
+    "xa/xa.sam":
+        "e2991d45c8880bed563c914dd0892cd1c4097c7ce066c36ffd0390977d9b082c",
+    "xa_records": 8433,
+    "xa_dropped": 0,
+}
+RESCUE_PINNED = {
+    "rescue.fastq":
+        "1412f2dfa8ffda589730829eda7f541b88eeb176b815ba7378cf5e4b770476a0",
+    "rescue.bam.pass1.sam":
+        "a2a61d21a325fbfea1e6cf845a49a5c7c58887ce6d59b258da805bd75279616b",
+    "rescue.bam.errorprofile":
+        "96e7df7c139f73c8cf90678737b671b0ab80654fae4ead8c91f3056c964d4b37",
+    "rescue_tp.sam":
+        "9e38714031360d2dd18bc0b054c17fe3dcd6951dc753a82921fd2f307b5348c8",
+    "rescue_mapped": 7701,
+    "rescue_overflow": 0,
+}
+COMBINED_PINNED = {
+    "comb/all.fastq":
+        "0da7e01b995b46ba949537e67df1dfae44ec2b99f5ce5efb063023135cc6762b",
+    "comb/exons.tsv":
+        "19a477908bbe25e7d26194591936e324e49789d4d62aa4243ae32bf725556d7a",
+    "comb/cidx.combined.json":
+        "b31c514c551e6d0e41c98b58ef0eb0f46385a3eb0c4a67a1c3a8e6981cf9f73f",
+    "comb/cidx.config.json":
+        "4342874f376c7c8a8b8ad416b711727f9f44af8085083c56f9baee82a0747a85",
+    "comb/cidx.kidx.npz":
+        "c964d9eef6034d3578ca84c2f078c010074d46b55c90c74f08893d4278ed67d2",
+    "comb/cidx.ref.json":
+        "e836debbfc5599e883bce61bd3634fcc6503241610e66caa228b93ac2713e27d",
+    "comb/cidx.seq.npy":
+        "d3d8896dc6f277f6990907600237dd2489ad3841122dc01a9ed1e4b4e577ad34",
+    "comb/tp.sam.pass1.sam":
+        "9ad6279d91196b0dc1350dbcc40a27dc532509ce40583bd83e919319ed53076a",
+    "comb/tp.sam.errorprofile":
+        "5a5d0a84399c10ddb56147c1e46086e3f2eb94f00ccfcc1d0fe46be0013000ba",
+    "comb/tp.sam":
+        "78344f7e706a2cad13c722de0aecff5ece416123778a393104c773d3b10aee2b",
+    "comb/xa.sam":
+        "7714e7d4d1d7e71660258f9649bb6465f91afe96998100332c9f2db930c2f815",
+}
 
 
 def sha256(path) -> str:
@@ -126,30 +221,32 @@ def phase(label: str, /, **fields) -> None:
 # the world (numpy only, so the JAX package can be run on the same files)
 # ---------------------------------------------------------------------------
 
-def write_world(out_dir, n_reads: int = N_READS) -> dict:
-    """Reference FASTA, all-reads and pinned FASTQs and the truth (.npz).
+def bench_chrom() -> np.ndarray:
+    """bench.build_state's reference: default_rng(1), REF_LEN uniform
+    bases, one chromosome."""
+    return np.random.default_rng(1).integers(0, 4, REF_LEN).astype(np.int8)
 
-    Reference: bench.build_state's (default_rng(1), REF_LEN uniform bases,
-    one chromosome). Reads (default_rng(2)): exactly half reverse-strand,
-    1% with a single-base deletion, 0.2% substitutions, T->C at 12% of the
-    read's T positions (machine frame), N_ALL_N all-N reads."""
-    from parasuite_tpu.io.fasta import write_fasta
-    from parasuite_tpu.io.fastq import write_fastq
 
-    out = Path(out_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    chrom = np.random.default_rng(1).integers(0, 4, REF_LEN).astype(np.int8)
-    write_fasta(out / "ref.fa", {"chr_bench": chrom})
+def draw_reads(chrom: np.ndarray, n: int, L: int, seed: int,
+               sub_rate: float = 0.002):
+    """The bench read model -> (reads int8 [n, L], start, reverse).
 
-    rng = np.random.default_rng(2)
-    n, L = n_reads, READ_LEN
-    start = rng.integers(0, REF_LEN - L - 1, n)
+    default_rng(seed): starts uniform over the windows of L + 1 bases that
+    hold no N, exactly half reverse-strand, 1% with a single-base deletion,
+    `sub_rate` substitutions, T->C at 12% of the read's T positions (machine
+    frame), N_ALL_N all-N reads. On a reference without N the draws are
+    bench.py's."""
+    rng = np.random.default_rng(seed)
+    last = chrom.shape[0] - L - 1
+    n_before = np.concatenate([[0], np.cumsum(chrom == 4, dtype=np.int32)])
+    clean = np.flatnonzero(n_before[L + 1 : last + L + 1] == n_before[:last])
+    start = clean[rng.integers(0, clean.shape[0], n)]
     deletion = rng.random(n) < 0.01
     cut = rng.integers(5, L - 5, n)
     col = np.arange(L)[None, :]
     idx = start[:, None] + col + (deletion[:, None] & (col >= cut[:, None]))
     frag = chrom[idx]
-    sub = rng.random((n, L)) < 0.002
+    sub = rng.random((n, L)) < sub_rate
     frag = np.where(sub, (frag + rng.integers(1, 4, (n, L))) % 4, frag)
     reverse = np.zeros(n, dtype=bool)
     reverse[rng.permutation(n)[: n // 2]] = True
@@ -157,14 +254,122 @@ def write_world(out_dir, n_reads: int = N_READS) -> dict:
     conv = (reads == 3) & (rng.random((n, L)) < 0.12)
     reads = np.where(conv, 1, reads).astype(np.int8)
     reads[rng.choice(n, N_ALL_N, replace=False)] = 4
-    lengths = np.full(n, L, dtype=np.int32)
-    names = [f"r{i}" for i in range(n)]
+    return reads, start, reverse
+
+
+def write_world(out_dir, n_reads: int = N_READS) -> dict:
+    """Reference FASTA, all-reads and pinned FASTQs and the truth (.npz):
+    bench_chrom() and draw_reads(seed 2) at READ_LEN."""
+    from parasuite_tpu.io.fasta import write_fasta
+    from parasuite_tpu.io.fastq import write_fastq
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    chrom = bench_chrom()
+    write_fasta(out / "ref.fa", {"chr_bench": chrom})
+    reads, start, reverse = draw_reads(chrom, n_reads, READ_LEN, 2)
+    lengths = np.full(n_reads, READ_LEN, dtype=np.int32)
+    names = [f"r{i}" for i in range(n_reads)]
     write_fastq(out / "all.fastq", names, reads, lengths)
     write_fastq(out / "pin.fastq", names[:N_PIN], reads[:N_PIN],
                 lengths[:N_PIN])
     truth = {"start": start, "reverse": reverse}
     np.savez(out / "truth.npz", **truth)
     return truth
+
+
+def write_rescue_reads(out_dir) -> None:
+    """rescue.fastq: N_MODE_READS reads of RESCUE_LEN bp on the bench
+    reference, draw_reads(seed 3) at 3% substitutions, so the primary
+    k = 12 pass leaves reads unmapped."""
+    from parasuite_tpu.io.fastq import write_fastq
+
+    reads, _, _ = draw_reads(bench_chrom(), N_MODE_READS, RESCUE_LEN, 3,
+                             sub_rate=0.03)
+    write_fastq(Path(out_dir) / "rescue.fastq",
+                [f"s{i}" for i in range(N_MODE_READS)], reads,
+                np.full(N_MODE_READS, RESCUE_LEN, dtype=np.int32))
+
+
+def write_xa_world(out_dir) -> None:
+    """ref.fa: chr22_like(seed=22), the 51 Mbp repeat-structured stand-in
+    for hg19 chr22 (a ~10.3 Mbp leading N block, interspersed repeat
+    families, satellite, segmental duplications); reads.fastq: N_MODE_READS
+    reads of READ_LEN bp, draw_reads(seed 4) over windows without N."""
+    from parasuite_tpu.io.fasta import write_fasta
+    from parasuite_tpu.io.fastq import write_fastq
+    from parasuite_tpu_torch.sim.genome import chr22_like
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    seqs, _ = chr22_like(seed=22)
+    write_fasta(out / "ref.fa", seqs)
+    reads, _, _ = draw_reads(seqs["chr22s"], N_MODE_READS, READ_LEN, 4)
+    write_fastq(out / "reads.fastq", [f"x{i}" for i in range(N_MODE_READS)],
+                reads, np.full(N_MODE_READS, READ_LEN, dtype=np.int32))
+
+
+def write_combined_world(out_dir) -> int:
+    """The world of tools/bench_combined.py, without jax: an 8 Mbp chr1
+    (default_rng(11)) with 400 three-exon transcripts (exons 120-400 bp,
+    introns 200-2,000 bp, alternating strands) -> ref.fa + exons.tsv; reads
+    (default_rng(12)): COMB_DRAWN drawn from the combined packing, half
+    genomic and half spliced-transcript (many junction-spanning), T->C at
+    12% of T, reads straddling a spacer dropped, shuffled -> all.fastq, and
+    the first N_PIN of them -> xa.fastq. Returns the number of reads."""
+    from parasuite_tpu.config import AlignConfig
+    from parasuite_tpu.io.fasta import write_fasta
+    from parasuite_tpu.io.fastq import write_fastq
+    from parasuite_tpu_torch.pipeline.combined import (CombinedReference,
+                                                       Transcript)
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(11)
+    genome = {"chr1": rng.integers(0, 4, COMB_GENOME).astype(np.int8)}
+    txs = []
+    for t in range(COMB_TX):
+        start = int(rng.integers(0, COMB_GENOME - 10_000))
+        starts, ends, p = [], [], start
+        for _ in range(3):
+            e = int(rng.integers(120, 400))
+            starts.append(p)
+            ends.append(p + e)
+            p += e + int(rng.integers(200, 2000))
+        txs.append(Transcript(f"t{t}", "chr1", "+" if t % 2 else "-",
+                              np.asarray(starts, dtype=np.int64),
+                              np.asarray(ends, dtype=np.int64)))
+    write_fasta(out / "ref.fa", genome)
+    (out / "exons.tsv").write_text("".join(
+        f"{t.tx_id}\t{t.chrom}\t{t.strand}\t"
+        f"{','.join(map(str, t.exon_starts))}\t"
+        f"{','.join(map(str, t.exon_ends))}\n" for t in txs))
+    ref = CombinedReference.build(genome, txs,
+                                  AlignConfig().chrom_spacer).ref
+
+    rng = np.random.default_rng(12)
+    n_g = COMB_DRAWN // 2
+    gpos = rng.integers(int(ref.starts[0]), int(ref.ends[0]) - READ_LEN, n_g)
+    n_t = COMB_DRAWN - n_g
+    ti = rng.integers(0, len(txs), n_t)
+    name_to_ci = {nm: i for i, nm in enumerate(ref.names)}
+    tstart = np.asarray([ref.starts[name_to_ci[f"tx::{t.tx_id}"]]
+                         for t in txs])
+    tlen = np.asarray([t.spliced_len for t in txs])
+    toff = (rng.random(n_t) * np.maximum(tlen[ti] - READ_LEN, 1)).astype(int)
+    pos = np.concatenate([gpos, tstart[ti] + toff])
+    codes = ref.seq[pos[:, None] + np.arange(READ_LEN)[None, :]]
+    conv = (codes == 3) & (rng.random(codes.shape) < 0.12)
+    codes = np.where(conv, 1, codes).astype(np.int8)
+    codes = codes[~np.any(codes == 4, axis=1)]
+    codes = codes[rng.permutation(codes.shape[0])]
+    n = codes.shape[0]
+    lengths = np.full(n, READ_LEN, dtype=np.int32)
+    names = [f"c{i}" for i in range(n)]
+    write_fastq(out / "all.fastq", names, codes, lengths)
+    write_fastq(out / "xa.fastq", names[:N_PIN], codes[:N_PIN],
+                lengths[:N_PIN])
+    return n
 
 
 def accuracy(sam_path, truth: dict) -> dict:
@@ -395,6 +600,7 @@ def pinned_twopass() -> None:
           launches=launches, digests=digests)
     if bad:
         raise AssertionError(f"outputs differ from the JAX package's: {bad}")
+    return launches
 
 
 def at_scale(truth: dict, gpu: str) -> dict:
@@ -488,6 +694,197 @@ def stage_split(engine, codes, lengths, gpu: str) -> None:
           ms={name: _median_ms(fn) for name, fn in stages.items()})
 
 
+def _digests(pins: dict) -> dict:
+    """SHA-256 of every file pinned in pins (the keys with str values)."""
+    return {name: sha256(WORK / name) for name, want in pins.items()
+            if isinstance(want, str)}
+
+
+def _finish(label: str, pins: dict, got: dict, launches: dict,
+            want_launches: int, **fields) -> None:
+    """Print the phase line, then fail on a pinned value (file digest or
+    counter) that differs from the JAX package's, or on a launch count
+    that is not the run's."""
+    phase(label, launches=launches, pinned=got, **fields)
+    bad = {k: {"got": got[k], "jax": pins[k]} for k in pins
+           if got[k] != pins[k]}
+    if bad:
+        raise AssertionError(f"{label}: differs from the JAX package's: "
+                             f"{bad}")
+    _expect_launches(launches, want_launches, label)
+
+
+def _records(sam_path):
+    """Alignment lines of a SAM file, header skipped."""
+    with open(sam_path) as fh:
+        return [line for line in fh if not line.startswith("@")]
+
+
+def _n_batches(n: int, batch: int) -> int:
+    return -(-n // batch)
+
+
+def xa_phase(gpu: str) -> dict:
+    t0 = time.perf_counter()
+    write_xa_world(WORK / "xa")
+    _cli_json(["index", str(WORK / "xa/ref.fa"), str(WORK / "xa/idx"),
+               *FLAGS])
+    t_world = time.perf_counter() - t0
+    _reset_counters()
+    res = _cli_json(["align", str(WORK / "xa/idx"),
+                     str(WORK / "xa/reads.fastq"), str(WORK / "xa/xa.sam"),
+                     "--xa", "--pg-cl", "smoke", "--batch-size", str(BATCH),
+                     *FLAGS, "--device", "cuda"])
+    launches = _counters()
+    n_xa = sum("\tXA:Z:" in line for line in _records(WORK / "xa/xa.sam"))
+    if n_xa == 0:
+        raise AssertionError("xa: no XA-tagged record")
+    _finish("xa", XA_PINNED,
+            {**_digests(XA_PINNED), "xa_records": n_xa,
+             "xa_dropped": res["xa_dropped"]},
+            launches, _n_batches(N_MODE_READS, BATCH),
+            seconds=round(time.perf_counter() - t0, 3),
+            world_and_index_seconds=round(t_world, 3), reads=res["reads"],
+            align_seconds=res["seconds"],
+            reads_per_s=res["reads_per_second"], gpu=gpu)
+    return launches
+
+
+def _kernels_equal_plain(didx, sprof, cfg, codes, lengths) -> dict:
+    """Both kernels against their plain versions on the stage inputs of
+    one batch -> {kernel: max abs err}; raises unless every output is
+    array-equal."""
+    import torch
+
+    from parasuite_tpu_torch.ops import aligner, cuda_extend, cuda_seed
+
+    dev = didx.ref_seq.device
+    c = torch.from_numpy(codes).to(dev)
+    ln = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+    o = aligner.orient_reads(c, ln)
+    d = aligner.seed_diagonals(o, ln, didx, cfg)
+    pairs = {"select_candidates": list(zip(
+        cuda_seed.select_candidates(d, cfg),
+        cuda_seed.select_candidates_plain(d, cfg)))}
+    cand = pairs["select_candidates"][0][0]
+    pairs["extend_candidates"] = list(zip(
+        cuda_extend.extend_candidates(o, ln, cand, didx, sprof, cfg),
+        cuda_extend.extend_candidates_plain(o, ln, cand, didx, sprof, cfg)))
+    torch.cuda.synchronize()
+    errs = {name: max(int((k.long() - p.long()).abs().max()) for k, p in ps)
+            for name, ps in pairs.items()}
+    if any(errs.values()):
+        raise AssertionError(f"kernels differ from plain at shape "
+                             f"{tuple(d.shape)}: {errs}")
+    return {**errs, "diagonals_per_row": int(d.shape[1]),
+            "rows": int(d.shape[0])}
+
+
+def rescue_phase(gpu: str) -> dict:
+    from parasuite_tpu.config import AlignConfig
+    from parasuite_tpu.index import KmerIndex, PackedReference
+    from parasuite_tpu.io.bam import bam_to_sam
+    from parasuite_tpu.io.fastq import read_fastq
+    from parasuite_tpu_torch.pipeline.align import AlignerEngine
+
+    t0 = time.perf_counter()
+    write_rescue_reads(WORK)
+    _reset_counters()
+    t1 = time.perf_counter()
+    res = _cli_json(["twopass", str(WORK / "idx"),
+                     str(WORK / "rescue.fastq"), str(WORK / "rescue.bam"),
+                     "--learned-gaps", "--rescue-kmer", "11", "--pg-cl",
+                     "smoke", "--batch-size", str(RESCUE_BATCH), *RFLAGS,
+                     "--device", "cuda"])
+    t_run = time.perf_counter() - t1
+    launches = _counters()
+    bam_to_sam(WORK / "rescue.bam", WORK / "rescue_tp.sam")
+    if res["rescue_mapped"] <= 0:
+        raise AssertionError("rescue: no read rescued")
+    # per pass: one primary step per batch, plus one rescue step in each
+    # batch with unmapped rows; every batch of this world has some (all-N
+    # reads are never mapped), which the final records confirm
+    n_b = _n_batches(N_MODE_READS, RESCUE_BATCH)
+    for sam in ("rescue.bam.pass1.sam", "rescue_tp.sam"):
+        unmapped = [int(line.split("\t", 2)[1]) & 4 != 0
+                    for line in _records(WORK / sam)]
+        if not all(any(unmapped[i:i + RESCUE_BATCH])
+                   for i in range(0, N_MODE_READS, RESCUE_BATCH)):
+            raise AssertionError(f"rescue: a batch of {sam} has no unmapped "
+                                 f"read; its launch count is not known")
+    dt = time.perf_counter() - t0
+    # the kernels at the rescue pass's shapes (k = 11, 13 seeds, L = 36)
+    cfg = AlignConfig(max_read_len=RESCUE_LEN, kmer_size=12,
+                      batch_size=RESCUE_BATCH, max_candidates=8, max_occ=16,
+                      rescue_kmer=11)
+    eng = AlignerEngine(PackedReference.load(WORK / "idx"),
+                        KmerIndex.load(WORK / "idx"), cfg, device="cuda")
+    cfg2, didx2, cap = eng._rescue
+    batch = read_fastq(WORK / "rescue.fastq", RESCUE_LEN)
+    vs_plain = _kernels_equal_plain(didx2, eng.sprof, cfg2,
+                                    batch.codes[:cap], batch.lengths[:cap])
+    _finish("rescue", RESCUE_PINNED,
+            {**_digests(RESCUE_PINNED), "rescue_mapped": res["rescue_mapped"],
+             "rescue_overflow": res["rescue_overflow"]},
+            launches, 2 * 2 * n_b, seconds=round(dt, 3), reads=res["reads"],
+            twopass_seconds=round(t_run, 3),
+            twopass_reads_per_s=round(res["reads"] / t_run, 1),
+            gap_open=res["gap_open"], gap_extend=res["gap_extend"],
+            kernels_vs_plain_at_rescue_shapes=vs_plain, gpu=gpu)
+    return launches
+
+
+def combined_phase(gpu: str) -> dict:
+    t0 = time.perf_counter()
+    comb = WORK / "comb"
+    n_reads = write_combined_world(comb)
+    _cli_json(["combine", str(comb / "ref.fa"), str(comb / "exons.tsv"),
+               str(comb / "cidx"), *FLAGS])
+    _cli_json(["index", str(comb / "ref.fa"), str(comb / "gidx"), *FLAGS])
+    t_world = time.perf_counter() - t0
+
+    def align(index, fastq, out, *extra):
+        return _cli_json(["align", str(comb / index), str(comb / fastq),
+                          str(comb / out), "--pg-cl", "smoke",
+                          "--batch-size", str(BATCH), *extra, *FLAGS,
+                          "--device", "cuda"])
+
+    _reset_counters()
+    # FASTQ->SAM of plain and combined mode on the same reads, in turns
+    rates = {"plain": [], "combined": []}
+    for mode in ("plain", "combined", "combined", "plain"):
+        index = "gidx" if mode == "plain" else "cidx"
+        r = align(index, "all.fastq", f"{mode}.sam")
+        if r["reads"] != n_reads:
+            raise AssertionError(f"combined: {mode} align wrote {r['reads']} "
+                                 f"records for {n_reads} reads")
+        rates[mode].append(r["reads_per_second"])
+    tp = _cli_json(["twopass", str(comb / "cidx"), str(comb / "all.fastq"),
+                    str(comb / "tp.sam"), "--learned-gaps", "--pg-cl",
+                    "smoke", "--batch-size", str(BATCH), *FLAGS, "--device",
+                    "cuda"])
+    xa = align("cidx", "xa.fastq", "xa.sam", "--xa")
+    launches = _counters()
+    n_b = _n_batches(n_reads, BATCH)
+    got = _digests(COMBINED_PINNED)
+    if sha256(comb / "combined.sam") != got["comb/tp.sam.pass1.sam"]:
+        raise AssertionError("combined: align SAM differs from the twopass "
+                             "pass-1 SAM")
+    n_xa = sum("\tXA:Z:" in line for line in _records(comb / "xa.sam"))
+    plain_rate = float(np.median(rates["plain"]))
+    comb_rate = float(np.median(rates["combined"]))
+    _finish("combined", COMBINED_PINNED, got, launches,
+            4 * n_b + 2 * n_b + _n_batches(N_PIN, BATCH),
+            seconds=round(time.perf_counter() - t0, 3),
+            world_and_index_seconds=round(t_world, 3), reads=n_reads,
+            fastq_to_sam_reads_per_s=rates,
+            combined_over_plain=comb_rate / plain_rate,
+            twopass_reads=tp["reads"], gap_open=tp["gap_open"],
+            gap_extend=tp["gap_extend"], xa_reads=xa["reads"],
+            xa_records=n_xa, xa_dropped=xa["xa_dropped"], gpu=gpu)
+    return launches
+
+
 def main() -> int:
     gpu = environment()
     build()
@@ -504,11 +901,11 @@ def main() -> int:
     engine = AlignerEngine(PackedReference.load(WORK / "idx"),
                            KmerIndex.load(WORK / "idx"), cfg, device="cuda")
     kernels = kernels_vs_plain(engine)
-    pinned_twopass()
-    launches = at_scale(truth, gpu)
+    runs = [pinned_twopass(), at_scale(truth, gpu)]
     device_rate(engine, gpu)
+    runs += [xa_phase(gpu), rescue_phase(gpu), combined_phase(gpu)]
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = sum(r[k["name"]] for r in runs)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

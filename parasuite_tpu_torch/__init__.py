@@ -12,7 +12,11 @@ from it, not copied.
 
 Layering:
     ops       -- device stages: orient, seed, select, extend, finalize,
-                 profile counts; kernels in ops/cuda_*.py + csrc/*.cu
-    pipeline  -- AlignerEngine, host tracebacks, streaming_align
-    cli       -- index / align / twopass
+                 candidate table, profile counts; kernels in
+                 ops/cuda_*.py + csrc/*.cu
+    pipeline  -- AlignerEngine (XA tags, two-tier rescue), host tracebacks,
+                 streaming_align, the two-pass API, CombinedEngine
+                 (genome+transcriptome)
+    sim       -- repeat-structured synthetic genomes
+    cli       -- index / combine / align / twopass
 """

@@ -1,14 +1,18 @@
-"""Command-line entry of the port: index, align, twopass.
+"""Command-line entry of the port: index, combine, align, twopass.
 
 Same subcommands, flags and outputs as parasuite_tpu.cli (the files are
-byte-identical for the same inputs), plus --device (default cuda). A device
-that is asked for and missing is an error; the CLI never moves to the CPU on
-its own. Combined genome+transcriptome indexes and the other subcommands are
-not ported yet (ROADMAP Queue 1).
+byte-identical for the same inputs, and either package reads the other's
+index files), plus --device (default cuda). A device that is asked for and
+missing is an error; the CLI never moves to the CPU on its own. align and
+twopass take --xa, --rescue-kmer and combined genome+transcriptome indexes
+(an index prefix with a .combined.json beside it). The other subcommands
+are not ported yet (ROADMAP Queue 1).
 
     python -m parasuite_tpu_torch.cli index ref.fa idx --kmer-size 12
+    python -m parasuite_tpu_torch.cli combine ref.fa exons.tsv cidx
     python -m parasuite_tpu_torch.cli twopass idx reads.fastq out.sam \\
-        --learned-gaps --device cuda
+        --learned-gaps --rescue-kmer 11 --device cuda
+    python -m parasuite_tpu_torch.cli align cidx reads.fastq out.sam --xa
 """
 
 from __future__ import annotations
@@ -28,16 +32,31 @@ def _load_engine(args, cfg):
     from parasuite_tpu.index import KmerIndex, PackedReference
     from parasuite_tpu_torch.pipeline.align import AlignerEngine
 
-    if Path(str(args.index_prefix) + ".combined.json").exists():
-        raise NotImplementedError("combined genome+transcriptome indexes are "
-                                  "not ported yet (ROADMAP Queue 1 item 5)")
     s = None
     if getattr(args, "profile", None):
         s = counts_to_profile(ErrorProfile.load(args.profile), cfg)
-    return AlignerEngine(PackedReference.load(args.index_prefix),
-                         KmerIndex.load(args.index_prefix), cfg, s_tensor=s,
-                         xa_tags=getattr(args, "xa", False),
-                         device=args.device)
+    idx = KmerIndex.load(args.index_prefix)
+    xa = getattr(args, "xa", False)
+    if Path(str(args.index_prefix) + ".combined.json").exists():
+        from parasuite_tpu_torch.pipeline.combined import (CombinedEngine,
+                                                           CombinedReference)
+
+        return CombinedEngine(CombinedReference.load(args.index_prefix), idx,
+                              cfg, s_tensor=s, xa_tags=xa,
+                              device=args.device)
+    return AlignerEngine(PackedReference.load(args.index_prefix), idx, cfg,
+                         s_tensor=s, xa_tags=xa, device=args.device)
+
+
+def _engine_counters(engines) -> dict:
+    """XA and rescue counters summed over the engines of one command (only
+    the ones its options turn on)."""
+    keys = []
+    if engines[0].xa_tags:
+        keys.append("xa_dropped")
+    if engines[0].cfg.rescue_kmer:
+        keys += ["rescue_mapped", "rescue_overflow"]
+    return {k: sum(getattr(e, k) for e in engines) for k in keys}
 
 
 def _command_line(args) -> str:
@@ -60,7 +79,8 @@ def cmd_align(args) -> int:
     print(json.dumps({"tool": "align", "reads": n,
                       "seconds": round(dt, 3),
                       "reads_per_second": round(n / max(dt, 1e-9), 1),
-                      "device": str(engine.device)}))
+                      "device": str(engine.device),
+                      **_engine_counters([engine])}))
     return 0
 
 
@@ -91,10 +111,12 @@ def cmd_twopass(args) -> int:
               n_gapped=profile.n_gapped)
 
     # pass 2: learned scoring (optionally learned gap penalties too)
+    engines = [engine]
     if args.learned_gaps:
         go, ge = profile.gap_penalties(cfg)
         cfg = dataclasses.replace(cfg, gap_open=go, gap_extend=ge)
         engine = _load_engine(args, cfg)
+        engines.append(engine)
         log.event("twopass.gaps", gap_open=go, gap_extend=ge)
     engine.set_profile(counts_to_profile(profile, cfg))
     n, _, _ = streaming_align(engine, args.fastq, args.out,
@@ -102,10 +124,20 @@ def cmd_twopass(args) -> int:
     Path(str(args.out) + ".config.json").write_text(cfg.to_json())
     out = {"tool": "twopass", "reads": n,
            "profiled_reads": profile.n_reads, "profile": str(profile_out),
-           "device": str(engine.device)}
+           "device": str(engine.device), **_engine_counters(engines)}
     if args.learned_gaps:
         out["gap_open"], out["gap_extend"] = cfg.gap_open, cfg.gap_extend
     print(json.dumps(out))
+    return 0
+
+
+def cmd_combine(args) -> int:
+    from parasuite_tpu_torch.pipeline.combined import build_combined_index
+
+    cfg = _cfg_from_args(args)
+    meta = build_combined_index(args.fasta, args.annotation, args.out_prefix,
+                                cfg)
+    print(json.dumps({"tool": "combine", **meta}))
     return 0
 
 
@@ -134,13 +166,21 @@ def build_parser() -> argparse.ArgumentParser:
     _add_cfg_flags(p)
     p.set_defaults(fn=cmd_index)
 
+    p = sub.add_parser("combine",
+                       help="build combined genome+transcriptome index")
+    p.add_argument("fasta")
+    p.add_argument("annotation", help="exon table (BED12-like TSV) or GTF")
+    p.add_argument("out_prefix")
+    _add_cfg_flags(p)
+    p.set_defaults(fn=cmd_combine)
+
     p = sub.add_parser("align", help="align FASTQ -> SAM/BAM")
     p.add_argument("index_prefix")
     p.add_argument("fastq")
     p.add_argument("out")
     p.add_argument("--profile", help=".errorprofile for profile-aware scoring")
     p.add_argument("--xa", action="store_true",
-                   help="emit XA:Z alternative-hit tags (not ported yet)")
+                   help="emit XA:Z alternative-hit tags (slower)")
     _add_run_flags(p)
     p.set_defaults(fn=cmd_align)
 

@@ -7,6 +7,9 @@ shift for the reverse complement, 16-wide row gathers for seed positions,
 3-bit packed reference words for the NM window) are plain gathers here; they
 give the same values.
 
+align_batch_with_candidates (XA tags, combined mode) adds the per-candidate
+table of parasuite_tpu/ops/aligner.py::candidate_table to the same step.
+
 Candidate selection and extension go through the wrappers in cuda_seed.py
 and cuda_extend.py: the Hopper kernels for CUDA tensors, the plain PyTorch
 versions for CPU tensors. Nothing here synchronises with the device, so a
@@ -265,18 +268,82 @@ def finalize_core(oriented, lengths, valid, strand, pos_key, dps, ug_eq,
     ), best_idx
 
 
+class CandidateTable(NamedTuple):
+    """Per-candidate outputs [B, 2C] for host-side work on every candidate:
+    XA alternates, and the genome-space re-finalization of combined
+    genome+transcriptome mode (pipeline/combined.py)."""
+
+    valid: torch.Tensor     # bool: passed min-score (pre-dedupe)
+    strand: torch.Tensor    # int32
+    pos: torch.Tensor       # int32 packed ungapped-key position
+    score: torch.Tensor     # int32 DP score
+    ug_equal: torch.Tensor  # bool
+    diag: torch.Tensor      # int32
+
+
+def candidate_table(oriented, lengths, min_scores, cand_diag, cand_valid,
+                    dp_score, dp_j, ug_score, ug_j, cfg: AlignConfig,
+                    G: int) -> CandidateTable:
+    B = oriented.shape[0]
+    L = oriented.shape[2]
+    C = cand_diag.shape[1]
+    n = 2 * C
+    W = cfg.band_width
+
+    def per_read(x):
+        return x.reshape(B, n)
+
+    diag = per_read(torch.clamp(cand_diag, -(L + 2 * W + 1), G))
+    dps = per_read(dp_score)
+    ug_eq = per_read(ug_score) == dps
+    j_sel = torch.where(ug_eq, per_read(ug_j), per_read(dp_j))
+    strand = repeat_each(torch.arange(2, dtype=torch.int32,
+                                      device=oriented.device), C)
+    return CandidateTable(
+        valid=per_read(cand_valid) & (dps >= min_scores[:, None]),
+        strand=strand[None, :].expand(B, n),
+        pos=diag - W + j_sel,
+        score=dps,
+        ug_equal=ug_eq,
+        diag=diag,
+    )
+
+
 # ---------------------------------------------------------------------------
 # full pipeline
 # ---------------------------------------------------------------------------
+
+def _extend_stages(didx: DeviceIndex, sprof: ScoreParams,
+                   codes: torch.Tensor, lengths: torch.Tensor,
+                   cfg: AlignConfig):
+    """orient -> seed -> select -> extend:
+    (oriented, cand_diag, cand_valid, (dp_score, dp_j, ug_score, ug_j))."""
+    oriented = orient_reads(codes, lengths)
+    diags = seed_diagonals(oriented, lengths, didx, cfg)
+    cand_diag, cand_valid = select_candidates(diags, cfg)
+    ext = extend_candidates(oriented, lengths, cand_diag, didx, sprof, cfg)
+    return oriented, cand_diag, cand_valid, ext
+
 
 def align_batch(didx: DeviceIndex, sprof: ScoreParams, codes: torch.Tensor,
                 lengths: torch.Tensor, min_scores: torch.Tensor,
                 cfg: AlignConfig) -> AlignResult:
     """End-to-end batch alignment; every input on didx's device."""
-    oriented = orient_reads(codes, lengths)
-    diags = seed_diagonals(oriented, lengths, didx, cfg)
-    cand_diag, cand_valid = select_candidates(diags, cfg)
-    dp_score, dp_j, ug_score, ug_j = extend_candidates(
-        oriented, lengths, cand_diag, didx, sprof, cfg)
+    oriented, cand_diag, cand_valid, ext = _extend_stages(
+        didx, sprof, codes, lengths, cfg)
     return finalize(oriented, lengths, min_scores, cand_diag, cand_valid,
-                    dp_score, dp_j, ug_score, ug_j, didx, sprof, cfg)
+                    *ext, didx, sprof, cfg)
+
+
+def align_batch_with_candidates(didx: DeviceIndex, sprof: ScoreParams,
+                                codes: torch.Tensor, lengths: torch.Tensor,
+                                min_scores: torch.Tensor, cfg: AlignConfig):
+    """align_batch + the per-candidate table -> (AlignResult,
+    CandidateTable), both left on the device."""
+    oriented, cand_diag, cand_valid, ext = _extend_stages(
+        didx, sprof, codes, lengths, cfg)
+    res = finalize(oriented, lengths, min_scores, cand_diag, cand_valid,
+                   *ext, didx, sprof, cfg)
+    table = candidate_table(oriented, lengths, min_scores, cand_diag,
+                            cand_valid, *ext, cfg, didx.ref_seq.shape[0])
+    return res, table

@@ -48,7 +48,7 @@ class DeviceIndex:
         if ref.total_len > np.iinfo(np.int32).max:
             raise ValueError("packed reference exceeds int32; the chromosome-"
                              "sharded index is not ported yet (ROADMAP Queue "
-                             "1 item 9)")
+                             "1 item 6)")
         return cls.from_numpy(ref.seq, index.bucket_starts, index.positions,
                               ref.starts, ref.ends, device)
 

@@ -1,1 +1,2 @@
-"""Host pipeline of the port: AlignerEngine and streaming_align."""
+"""Host pipeline of the port: AlignerEngine, CombinedEngine,
+streaming_align and the two-pass API."""

@@ -2,12 +2,13 @@
 records out.
 
 Counterpart of parasuite_tpu/pipeline/align.py. The device step is
-ops/aligner.py::align_batch on the engine's device; host tracebacks for the
-rare gapped winners and SAM/BAM emission are numpy and C++ (parasuite_tpu
-native). host_traceback, host_tracebacks_batch, LazyCigars, HostAlignments
-and the emit path are copies of the reference's (its pipeline package
-imports jax when it is imported), pinned to it by tests/test_torch_*.py;
-the copies leave out the XA-tag branches, since the engine refuses XA.
+ops/aligner.py::align_batch (align_batch_with_candidates with XA tags) on the
+engine's device; the two-tier rescue pass (config.rescue_kmer) is a second
+align_batch at the smaller k. Host tracebacks for the rare gapped winners,
+XA strings and SAM/BAM emission are numpy and C++ (parasuite_tpu native).
+host_traceback, host_tracebacks_batch, LazyCigars, HostAlignments, the XA,
+rescue and emit paths are copies of the reference's (its pipeline package
+imports jax when it is imported), pinned to it by tests/test_torch_*.py.
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ from parasuite_tpu.io.sam import format_record
 from parasuite_tpu.oracle.align import (_ref_window, _score_rows, banded_dp,
                                         traceback_alignment)
 from parasuite_tpu.utils.dna import N, revcomp_codes
-from parasuite_tpu_torch.ops.aligner import AlignResult, align_batch
+from parasuite_tpu_torch.ops.aligner import (AlignResult, CandidateTable,
+                                              align_batch,
+                                              align_batch_with_candidates)
 from parasuite_tpu_torch.ops.device_index import (DeviceIndex, ScoreParams,
                                                   min_score_table)
 from parasuite_tpu_torch.ops.profile_update import profile_counts_batch
@@ -229,6 +232,48 @@ class HostAlignments:
     ug_equal: np.ndarray
     cigars: LazyCigars       # [(op, len)] per read
     tc_count: np.ndarray     # machine-frame T->C conversions per read
+    xa: list = None          # per-read XA:Z alternative-hit strings (or None)
+
+
+_BOOL_FIELDS = ("mapped", "ug_equal", "valid")
+
+
+def fetch_host(res: AlignResult, table: CandidateTable | None = None):
+    """Device result (and candidate table) -> numpy namedtuples in ONE
+    device->host transfer: every field is stacked into one int32 buffer, so
+    a batch synchronises once, not once per field. -> (AlignResult,
+    CandidateTable or None) of numpy arrays; bool fields come back bool."""
+    B = res.mapped.shape[0]
+    parts = [torch.stack([x.to(torch.int32) for x in res]).reshape(-1)]
+    if table is not None:
+        parts.append(torch.stack([x.to(torch.int32)
+                                  for x in table]).reshape(-1))
+    flat = torch.cat(parts).cpu().numpy()
+
+    def unstack(cls, rows):
+        return cls(*(r.astype(bool) if f in _BOOL_FIELDS else r
+                     for f, r in zip(cls._fields, rows)))
+
+    n_res = len(AlignResult._fields)
+    res_h = unstack(AlignResult, flat[: n_res * B].reshape(n_res, B))
+    if table is None:
+        return res_h, None
+    n_tab = len(CandidateTable._fields)
+    return res_h, unstack(CandidateTable, flat[n_res * B:].reshape(
+        n_tab, B, table.valid.shape[1]))
+
+
+def orient_rows(codes: np.ndarray, lengths: np.ndarray, rows: np.ndarray,
+                strand: np.ndarray) -> np.ndarray:
+    """int8 [len(rows), L] genome-frame reads for host_tracebacks_batch:
+    row b as is on strand 0, reverse-complemented on strand 1, N-padded
+    past its length."""
+    om = np.full((rows.shape[0], codes.shape[1]), 4, dtype=np.int8)
+    for k, b in enumerate(rows):
+        ln = int(lengths[b])
+        om[k, :ln] = (codes[b, :ln] if strand[b] == 0
+                      else revcomp_codes(codes[b, :ln]))
+    return om
 
 
 def resolve_device(device) -> torch.device:
@@ -251,22 +296,35 @@ class AlignerEngine:
 
     def __init__(self, ref: PackedReference, index: KmerIndex,
                  cfg: AlignConfig, s_tensor: np.ndarray | None = None,
-                 xa_tags: bool = False, device="cuda"):
-        if xa_tags:
-            raise NotImplementedError("XA tags are not ported yet (ROADMAP "
-                                      "Queue 1 item 3)")
-        if cfg.rescue_kmer:
-            raise NotImplementedError("two-tier rescue (rescue_kmer) is not "
-                                      "ported yet (ROADMAP Queue 1 item 2)")
+                 xa_tags: bool = False, xa_limit: int = 10, device="cuda"):
         self.device = resolve_device(device)
         self.ref = ref
         self.sam_ref = ref  # reference used for SAM emission
         self.cfg = cfg
+        self.xa_tags = xa_tags
+        self.xa_limit = xa_limit
+        self.xa_dropped = 0  # alternates over xa_limit (counted, not silent)
         self.didx = DeviceIndex.from_host(ref, index, self.device)
         self._ms_table = torch.from_numpy(min_score_table(cfg)).to(
             self.device)
         self.set_profile(s_tensor if s_tensor is not None
                          else flat_score_tensor(cfg, cfg.max_read_len))
+        # two-tier seeding rescue (config.rescue_kmer): a second k-mer index
+        # at the smaller k; unmapped reads retry through it in to_host. The
+        # rescue step takes its min scores from _ms_table (built from cfg):
+        # cfg2 differs only in seeding fields, so the thresholds are equal
+        # (tests/test_torch_modes.py).
+        self._rescue = None
+        self.rescue_overflow = 0   # unmapped rows beyond the rescue batch
+        self.rescue_mapped = 0     # reads the rescue pass recovered
+        self.last_rescue_rows = None
+        if cfg.rescue_kmer:
+            cfg2 = cfg.replace(kmer_size=cfg.rescue_kmer, rescue_kmer=0,
+                               max_seeds=max(cfg.rescue_seeds,
+                                             cfg.max_seeds))
+            didx2 = DeviceIndex.from_host(
+                ref, KmerIndex.build(ref.seq, cfg2.kmer_size), self.device)
+            self._rescue = (cfg2, didx2, max(256, cfg.batch_size // 8))
 
     def set_profile(self, s_tensor: np.ndarray) -> None:
         """Swap in a learned score tensor (pass 2)."""
@@ -280,46 +338,57 @@ class AlignerEngine:
         ln = torch.from_numpy(np.ascontiguousarray(lengths, dtype=np.int32))
         return c, ln.to(self.device)
 
-    def align_device(self, codes: np.ndarray,
-                     lengths: np.ndarray) -> AlignResult:
-        """-> AlignResult left on the device. Enqueues work only: nothing
-        here waits for the device, so streaming_align keeps `depth` batches
-        in flight."""
+    def _step(self, didx: DeviceIndex, cfg: AlignConfig, codes: np.ndarray,
+              lengths: np.ndarray, with_candidates: bool = False):
         c, ln = self._upload(codes, lengths)
-        ms = self._ms_table[torch.clamp(ln, 0, self.cfg.max_read_len).long()]
-        return align_batch(self.didx, self.sprof, c, ln, ms, self.cfg)
+        ms = self._ms_table[torch.clamp(ln, 0, cfg.max_read_len).long()]
+        step = align_batch_with_candidates if with_candidates else align_batch
+        return step(didx, self.sprof, c, ln, ms, cfg)
 
-    def profile_counts_device(self, codes, lengths, res: AlignResult):
+    def align_device(self, codes: np.ndarray, lengths: np.ndarray):
+        """-> AlignResult, or (AlignResult, CandidateTable) with xa_tags,
+        left on the device. Enqueues work only: nothing here waits for the
+        device, so streaming_align keeps `depth` batches in flight."""
+        return self._step(self.didx, self.cfg, codes, lengths, self.xa_tags)
+
+    def profile_counts_device(self, codes, lengths, res):
+        if not hasattr(res, "mapped"):
+            res = res[0]
         c, ln = self._upload(codes, lengths)
         return profile_counts_batch(self.didx, c, ln, res.mapped, res.strand,
                                     res.pos, res.ug_equal, self.cfg)
 
     # --- host finishing ---
-    def to_host(self, batch: ReadBatch, res: AlignResult) -> HostAlignments:
-        """Pull results to host in ONE transfer; run tracebacks for the rare
-        gapped reads."""
+    def to_host(self, batch: ReadBatch, res) -> HostAlignments:
+        """Pull results (and the XA candidate table) to host in ONE
+        transfer; run tracebacks for the rare gapped reads."""
         cfg = self.cfg
-        fields = dict(zip(AlignResult._fields, torch.stack(
-            [x.to(torch.int32) for x in res]).cpu().numpy()))
-        mapped = fields["mapped"].astype(bool)
-        strand = fields["strand"]
-        pos = fields["pos"].copy()
-        score = fields["score"]
-        ug_eq = fields["ug_equal"].astype(bool)
-        nm = fields["nm"].copy()
-        diag = fields["diag"]
+        table = None
+        if not hasattr(res, "mapped"):
+            res, table = res
+        res, table = fetch_host(res, table)
+        mapped = res.mapped
+        strand = res.strand
+        pos = res.pos.copy()
+        score = res.score
+        ug_eq = res.ug_equal
+        nm = res.nm.copy()
+        diag = res.diag
         lens = batch.lengths
-        tc = fields["tc_count"].copy()
+        tc = res.tc_count.copy()
+        mapq, x0, x1 = res.mapq, res.x0, res.x1
+        self.last_rescue_rows = None  # rows rescued in THIS batch (stream
+        # profile accumulation counts their substitutions host-side: the
+        # fused device counts are pass-1-keyed and never saw them)
+        # rescue dispatches NOW and merges after the primary host work, so
+        # its device step overlaps the gapped tracebacks
+        pend_rescue = (self._dispatch_rescue(batch, mapped)
+                       if self._rescue is not None else None)
         cigars = LazyCigars(mapped, lens)
         grows = np.nonzero(mapped & ~ug_eq)[0]
         if grows.shape[0]:
             # all gapped reads in ONE vectorized DP (host_tracebacks_batch)
-            L = batch.codes.shape[1]
-            om = np.full((grows.shape[0], L), 4, dtype=np.int8)
-            for k, b in enumerate(grows):
-                ln = int(lens[b])
-                om[k, :ln] = (batch.codes[b, :ln] if strand[b] == 0
-                              else revcomp_codes(batch.codes[b, :ln]))
+            om = orient_rows(batch.codes, lens, grows, strand)
             tbs = host_tracebacks_batch(
                 self.ref.seq, self.s_tensor, self.s_comp, cfg, om,
                 lens[grows], strand[grows], diag[grows])
@@ -331,25 +400,236 @@ class AlignerEngine:
                 tc[b] = tc_count_from_cigar(self.ref.seq, p,
                                             om[k, : int(lens[b])],
                                             int(strand[b]), cigar)
+        if pend_rescue is not None:
+            (mapped, strand, pos, score, mapq, x0, x1, nm, ug_eq, diag,
+             tc) = self._finish_rescue(pend_rescue, batch, cigars, mapped,
+                                       strand, pos, score, mapq, x0, x1, nm,
+                                       ug_eq, diag, tc)
+        xa = (self._xa_strings(batch, table, mapped, strand, pos, score)
+              if table is not None else None)
         return HostAlignments(mapped=mapped, strand=strand, pos=pos,
-                              score=score, mapq=fields["mapq"],
-                              x0=fields["x0"], x1=fields["x1"],
+                              score=score, mapq=mapq, x0=x0, x1=x1,
                               nm=nm, ug_equal=ug_eq, cigars=cigars,
-                              tc_count=tc)
+                              tc_count=tc, xa=xa)
+
+    def _dispatch_rescue(self, batch, mapped):
+        """Two-tier seeding (config.rescue_kmer), dispatch half: enqueue the
+        smaller-k device step over this batch's unmapped reads and return
+        the pending handle; _finish_rescue merges after the primary host
+        work.
+
+        Rescued rows carry the cfg2 result wholesale. Profile counts: the
+        device count matrix is keyed on the primary pass, so
+        pipeline/stream.py counts rescued rows host-side from
+        self.last_rescue_rows. XA alternates are not emitted for rescued
+        rows. Unmapped rows beyond the rescue batch cap stay unmapped and
+        are counted in self.rescue_overflow (no silent cap)."""
+        cfg2, didx2, cap = self._rescue
+        lens = np.asarray(batch.lengths)
+        # n_total, not n_real (len(names)): padding rows are excluded by
+        # their zero length, and nameless library-level batches still rescue
+        n = batch.codes.shape[0]
+        rows = np.nonzero(~mapped[:n] & (lens[:n] > 0))[0]
+        if rows.shape[0] == 0:
+            return None
+        if rows.shape[0] > cap:
+            self.rescue_overflow += int(rows.shape[0] - cap)
+            rows = rows[:cap]
+        L = batch.codes.shape[1]
+        codes2 = np.full((cap, L), 4, dtype=np.int8)
+        lens2 = np.zeros(cap, dtype=np.int32)
+        codes2[: rows.shape[0]] = batch.codes[rows]
+        lens2[: rows.shape[0]] = lens[rows]
+        return rows, self._step(didx2, cfg2, codes2, lens2)
+
+    def _finish_rescue(self, pend, batch, cigars, *arrays):
+        """Merge half of the rescue pass: fetch the small-k results, write
+        rescued rows into (copies of) the result arrays, rebind the CIGAR
+        store, and run the gapped rescued tracebacks. Band and gap
+        parameters are equal between tiers, so host_tracebacks_batch under
+        self.cfg is exact for the rescue tier too."""
+        rows, out2 = pend
+        r2, _ = fetch_host(out2)
+        m2 = r2.mapped[: rows.shape[0]]
+        if not m2.any():
+            return arrays
+        hit = rows[m2]
+        src = np.nonzero(m2)[0]
+        self.rescue_mapped += int(hit.shape[0])
+        self.last_rescue_rows = hit
+        outs = [a.copy() for a in arrays]
+        for o, f in zip(outs, ("mapped", "strand", "pos", "score", "mapq",
+                               "x0", "x1", "nm", "ug_equal", "diag",
+                               "tc_count")):
+            o[hit] = getattr(r2, f)[src]
+        (mapped, strand, pos, score, _mapq, _x0, _x1, nm, ug_eq, diag,
+         tc) = outs
+        # LazyCigars was built against the pre-merge mapped array; rescued
+        # rows synthesize their "{L}M" default off the merged one
+        cigars._mapped = mapped
+        g2 = hit[~ug_eq[hit]]
+        if g2.shape[0]:
+            lens_all = np.asarray(batch.lengths)
+            om = orient_rows(batch.codes, lens_all, g2, strand)
+            tbs = host_tracebacks_batch(
+                self.ref.seq, self.s_tensor, self.s_comp, self.cfg, om,
+                lens_all[g2], strand[g2], diag[g2])
+            for k, b in enumerate(g2):
+                p, cigar, total_nm = tbs[k]
+                b = int(b)
+                pos[b] = p
+                cigars[b] = cigar
+                nm[b] = total_nm
+                tc[b] = tc_count_from_cigar(
+                    self.ref.seq, p, om[k, : int(lens_all[b])],
+                    int(strand[b]), cigar)
+        return tuple(outs)
+
+    def _xa_strings(self, batch, table, mapped, strand, pos, score,
+                    rows=None):
+        """Per-read XA:Z alternative-hit tags (BWA samse convention:
+        chrom,(+/-)pos1,CIGAR,NM). Gapped alternates get a host DP traceback
+        for a real CIGAR. At most xa_limit alternates are emitted per read;
+        overflow alternates are COUNTED in self.xa_dropped rather than
+        silently discarded. rows optionally restricts emission to a subset
+        of batch rows (combined mode handles transcript-candidate rows in
+        its slow path)."""
+        from parasuite_tpu.io.sam import cigar_string
+
+        t_valid = np.asarray(table.valid)
+        t_strand = np.asarray(table.strand)
+        t_pos = np.asarray(table.pos)
+        t_score = np.asarray(table.score)
+        t_ug = np.asarray(table.ug_equal)
+        t_diag = np.asarray(table.diag)
+        B, n = t_valid.shape
+        xa: list = [None] * B
+        G = self.sam_ref.seq.shape[0]
+        for b in (range(B) if rows is None else rows):
+            b = int(b)
+            if not mapped[b] or not t_valid[b].any():
+                continue
+            ln = int(batch.lengths[b])
+            # unique alternates != the chosen hit (seen keys are final
+            # positions: gapped alternates dedupe AFTER traceback so a
+            # traceback-shifted winner is never re-emitted as an alternate).
+            # xa_dropped is an approximate upper bound — post-cap uniques
+            # are keyed by ungapped t_pos (no traceback).
+            seen = {(int(strand[b]), int(pos[b]))}
+            alts = []  # (strand, packed_pos, cigar_str, nm)
+            oriented_cache = {}
+            tb_cache = {}  # (strand, diag) -> traceback: one DP per diagonal
+
+            def oriented_for(st):
+                if st not in oriented_cache:
+                    oriented_cache[st] = (batch.codes[b, :ln] if st == 0
+                                          else revcomp_codes(
+                                              batch.codes[b, :ln]))
+                return oriented_cache[st]
+
+            order = np.lexsort((t_pos[b], t_strand[b], -t_score[b]))
+            for t in order:
+                if not t_valid[b, t]:
+                    continue
+                st = int(t_strand[b, t])
+                if len(alts) >= self.xa_limit:
+                    # over the cap: count uniques by ungapped key (cheap,
+                    # no traceback) instead of dropping silently
+                    if (st, int(t_pos[b, t])) not in seen:
+                        seen.add((st, int(t_pos[b, t])))
+                        self.xa_dropped += 1
+                    continue
+                if t_ug[b, t]:
+                    p = int(t_pos[b, t])
+                    key = (st, p)
+                    if key in seen:
+                        continue
+                    seen.add(key)
+                    alts.append((st, p, f"{ln}M", None))
+                else:
+                    dkey = (st, int(t_diag[b, t]))
+                    if dkey not in tb_cache:
+                        tb_cache[dkey] = host_traceback(
+                            self.sam_ref.seq, self.s_tensor, self.s_comp,
+                            self.cfg, oriented_for(st), ln, st, dkey[1])
+                    p, cigar, nm_alt = tb_cache[dkey]
+                    key = (st, p)
+                    if key in seen:
+                        continue
+                    seen.add(key)
+                    alts.append((st, p, cigar_string(cigar), nm_alt))
+            if not alts:
+                continue
+            parts = []
+            for st, p, cig, nm_alt in alts:
+                ci, local = self.sam_ref.locate(np.asarray([p]))
+                if ci[0] < 0 or p + ln > G:
+                    continue
+                if nm_alt is None:
+                    oriented = oriented_for(st)
+                    rb = self.sam_ref.seq[p : p + ln]
+                    nm_alt = int(np.sum((rb != oriented) | (rb == N)
+                                        | (oriented == N)))
+                parts.append(f"{self.sam_ref.names[int(ci[0])]},"
+                             f"{'+' if st == 0 else '-'}{int(local[0]) + 1},"
+                             f"{cig},{nm_alt}")
+            if parts:
+                xa[b] = "XA:Z:" + ";".join(parts) + ";"
+        return xa
+
+    def gapped_indel_counts(self, batch: ReadBatch, res, ins_counts,
+                            del_counts, sub_counts=None) -> int:
+        """Accumulate indel events — and, when sub_counts is given, the
+        M-segment substitution counts — from this batch's gapped alignments
+        (host tracebacks). Feeds ErrorProfile during pass-1 inference so
+        every aligned read contributes. Returns the number of gapped
+        reads."""
+        from parasuite_tpu.errormodel.infer import (
+            count_indels_from_cigar, count_substitutions_from_cigar)
+
+        if not hasattr(res, "mapped"):
+            res = res[0]
+        res, _ = fetch_host(res)
+        strand = res.strand
+        n = batch.n_real
+        grows = np.nonzero(res.mapped[:n] & ~res.ug_equal[:n])[0]
+        if grows.shape[0] == 0:
+            return 0
+        lens = np.asarray(batch.lengths)
+        om = orient_rows(batch.codes, lens, grows, strand)
+        tbs = host_tracebacks_batch(
+            self.ref.seq, self.s_tensor, self.s_comp, self.cfg, om,
+            lens[grows], strand[grows], res.diag[grows])
+        for k, b in enumerate(grows):
+            ln = int(lens[b])
+            pos, cigar, _nm = tbs[k]
+            count_indels_from_cigar(cigar, ln, int(strand[b]), ins_counts,
+                                    del_counts)
+            if sub_counts is not None:
+                count_substitutions_from_cigar(
+                    self.ref.seq, pos, om[k, :ln], ln, int(strand[b]),
+                    cigar, sub_counts)
+        return int(grows.shape[0])
+
+    # --- one-call convenience ---
+    def align_to_host(self, batch: ReadBatch) -> HostAlignments:
+        return self.to_host(batch, self.align_device(batch.codes,
+                                                     batch.lengths))
 
     def emit_sam(self, batch: ReadBatch, host: HostAlignments, writer) -> None:
         """Emit records in read order.
 
-        All record shapes — ungapped, unmapped and gapped — go through the
-        native C++ batch formatter in ONE call per batch (bytes identical to
-        format_record — tests/test_native.py)."""
+        Every record without an XA tag — ungapped, unmapped, gapped and
+        junction CIGARs — goes through the native C++ batch formatter, one
+        call per run of such records (bytes identical to format_record —
+        tests/test_native.py); XA-tagged records use the Python path."""
         self._emit(batch, host, writer, bam=False)
 
     def emit_bam(self, batch: ReadBatch, host: HostAlignments, writer) -> None:
-        """emit_sam's binary twin: one C++ BAM-record-formatter call per
-        batch (bytes identical to encode_bam_record over the SAM text —
-        tests/test_native.py), so `.bam` outputs stream straight through
-        the writer thread."""
+        """emit_sam's binary twin: the C++ BAM-record formatter (bytes
+        identical to encode_bam_record over the SAM text —
+        tests/test_native.py); XA records go to writer.write as SAM text
+        and the BAM sink encodes them."""
         self._emit(batch, host, writer, bam=True)
 
     def _emit(self, batch, host, writer, bam: bool) -> None:
@@ -363,54 +643,76 @@ class AlignerEngine:
                 writer.write(self._format_one(batch, host, b))
             return
         fmt = native.bam_format_batch if bam else native.sam_format_batch
-        # A record the C++ formatter cannot represent (name+NUL > 255 bytes,
-        # MD text past its fixed buffer — possible with raised max_read_len)
-        # returns -1 and the wrapper raises; that must not abort the stream.
-        # Fall back to the per-record Python formatter for this batch.
-        try:
-            writer.write_block(self._format_native_run(batch, host, n, fmt))
-        except RuntimeError:
-            for b in range(n):
-                writer.write(self._format_one(batch, host, b))
+
+        def emit_run(b: int, e: int) -> None:
+            # A record the C++ formatter cannot represent (name+NUL > 255
+            # bytes, MD text past its fixed buffer — possible with raised
+            # max_read_len) returns -1 and the wrapper raises; that must not
+            # abort the stream. Fall back to the per-record Python formatter
+            # for this run.
+            try:
+                writer.write_block(self._format_native_run(batch, host, b, e,
+                                                           fmt))
+            except RuntimeError:
+                for i in range(b, e):
+                    writer.write(self._format_one(batch, host, i))
+
+        if host.xa is None:
+            emit_run(0, n)
+            return
+        elig = np.asarray([host.xa[b] is None for b in range(n)])
+        bounds = np.flatnonzero(elig[1:] != elig[:-1]) + 1
+        edges = np.concatenate(([0], bounds, [n]))
+        for b, e in zip(edges[:-1], edges[1:]):
+            b, e = int(b), int(e)
+            if elig[b]:
+                emit_run(b, e)
+            else:
+                for i in range(b, e):
+                    writer.write(self._format_one(batch, host, i))
 
     _OP_CODE = {"M": 0, "I": 1, "D": 2, "N": 3}
 
-    def _cigar_arrays(self, host, n):
-        """Flat (cig_off, ops, lens) arrays for records [0, n) with
+    def _cigar_arrays(self, host, b, e):
+        """Flat (cig_off, ops, lens) arrays for records [b, e) with
         non-default CIGARs (None when every record is default)."""
-        items = host.cigars.overrides_in(0, n)
+        items = host.cigars.overrides_in(b, e)
         if not items:
             return None
-        counts = np.zeros(n, dtype=np.int64)
+        counts = np.zeros(e - b, dtype=np.int64)
         for i, c in items:
-            counts[i] = len(c)
-        off = np.zeros(n + 1, dtype=np.int64)
+            counts[i - b] = len(c)
+        off = np.zeros(e - b + 1, dtype=np.int64)
         np.cumsum(counts, out=off[1:])
         total = int(off[-1])
         ops = np.zeros(total, dtype=np.uint8)
         lens = np.zeros(total, dtype=np.int32)
         code = self._OP_CODE
         for i, c in items:
-            o = int(off[i])
+            o = int(off[i - b])
             for k, (op, ln) in enumerate(c):
                 ops[o + k] = code[op]
                 lens[o + k] = ln
         return off, ops, lens
 
     def _format_one(self, batch, host, b) -> str:
+        extra = None
+        if host.xa is not None and host.xa[b]:
+            extra = [host.xa[b]]
         return format_record(
             batch.names[b], batch.codes[b], int(batch.lengths[b]),
             batch.qual_bytes(b), self.sam_ref,
             mapped=bool(host.mapped[b]), strand=int(host.strand[b]),
             packed_pos=int(host.pos[b]), mapq=int(host.mapq[b]),
             cigar=host.cigars[b], score=int(host.score[b]),
-            nm=int(host.nm[b]), x0=int(host.x0[b]), x1=int(host.x1[b]))
+            nm=int(host.nm[b]), x0=int(host.x0[b]), x1=int(host.x1[b]),
+            extra_tags=extra)
 
-    def _format_native_run(self, batch, host, n, fmt) -> bytes:
-        """Records [0, n) through one native formatter call."""
+    def _format_native_run(self, batch, host, b, e, fmt) -> bytes:
+        """Records [b, e) through one native formatter call."""
         from parasuite_tpu.io.batch import NameBlock
 
-        sl = slice(0, n)
+        sl = slice(b, e)
         mapped = host.mapped[sl]
         strand = host.strand[sl]
         flag = np.where(mapped, np.where(strand == 1, 16, 0), 4)
@@ -418,11 +720,11 @@ class AlignerEngine:
         ci, local = self.sam_ref.locate(np.where(mapped, pos, 0))
         # NameBlock.raw: (blob, offsets) pass-through, zero per-record work;
         # list[str] batches (tests/tools) join inside sam_format_batch
-        names = (batch.names.raw(0, n)
+        names = (batch.names.raw(b, e)
                  if isinstance(batch.names, NameBlock) else batch.names[sl])
         return fmt(
             self.sam_ref.seq, batch.codes[sl], batch.lengths[sl],
             names, batch.quals[sl], self.sam_ref.names,
             flag, np.maximum(ci, 0), (local + 1).astype(np.int32),
             pos, host.mapq[sl], host.nm[sl], host.x0[sl], host.x1[sl],
-            host.score[sl], cigars=self._cigar_arrays(host, n))
+            host.score[sl], cigars=self._cigar_arrays(host, b, e))

@@ -219,15 +219,46 @@ def test_host_helper_copies_equal_reference(helper, engines, tiny_ref, cfg):
 
 
 def test_engine_refuses_what_it_cannot_run(tiny_ref, tiny_index, cfg):
-    """No silent fallback: a missing CUDA device is an error, and the parts
-    not ported yet say so."""
+    """No silent fallback: a missing CUDA device is an error, and combined
+    mode refuses rescue as the reference does."""
+    from parasuite_tpu_torch.pipeline.combined import (CombinedEngine,
+                                                       CombinedReference)
+
     if torch.cuda.is_available():
         pytest.skip("checks the no-CUDA error path")
     with pytest.raises(RuntimeError, match="cuda"):
         talign.AlignerEngine(tiny_ref, tiny_index, cfg, device="cuda")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        talign.AlignerEngine(tiny_ref, tiny_index, cfg, xa_tags=True,
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        talign.AlignerEngine(tiny_ref, tiny_index, cfg.replace(rescue_kmer=6),
-                             device="cpu")
+    genome = {name: tiny_ref.seq[tiny_ref.starts[i]:tiny_ref.ends[i]]
+              for i, name in enumerate(tiny_ref.names)}
+    comb = CombinedReference.build(genome, [], spacer=cfg.chrom_spacer)
+    with pytest.raises(ValueError, match="rescue_kmer"):
+        CombinedEngine(comb, tiny_index, cfg.replace(rescue_kmer=6),
+                       device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["xa", "rescue"])
+def test_xa_and_rescue_engines_run_on_cpu(mode, tiny_ref, tiny_index, cfg):
+    """The XA and rescue engines build and run on CPU tensors: XA strings
+    for a read with an alternate, rescued reads for 36 bp reads the k = 8
+    pass leaves unmapped."""
+    from parasuite_tpu.io.batch import ReadBatch
+
+    rng = np.random.default_rng(12)
+    if mode == "xa":
+        eng = talign.AlignerEngine(tiny_ref, tiny_index, cfg, xa_tags=True,
+                                   device="cpu")
+        codes, lengths, _ = sample_reads(rng, tiny_ref, 32, 50, mutate=6)
+    else:
+        eng = talign.AlignerEngine(tiny_ref, tiny_index,
+                                   cfg.replace(rescue_kmer=6), device="cpu")
+        codes, lengths, _ = sample_reads(rng, tiny_ref, 64, 36, mutate=5)
+        codes = np.concatenate(
+            [codes, np.full((64, 14), 4, dtype=np.int8)], axis=1)
+    host = eng.align_to_host(ReadBatch(codes=codes, lengths=lengths))
+    assert host.mapped.any()
+    if mode == "xa":
+        assert len(host.xa) == 32 and eng.xa_dropped >= 0
+        assert all(x is None or x.startswith("XA:Z:") for x in host.xa)
+    else:
+        assert eng.rescue_mapped > 0 and host.xa is None
+        assert host.mapped[eng.last_rescue_rows].all()
