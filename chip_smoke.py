@@ -37,13 +37,28 @@ each prints one line, and any failure raises (exit code != 0):
      genome with 400 three-exon transcripts, write_combined_world), then
      `twopass --learned-gaps` on its 262,144 reads and `align --xa` on the
      first 16,384; the index files and every output equal the JAX package's
-     (COMBINED_PINNED); FASTQ->SAM reads/s of combined and plain mode
-     (`align` on a genome-only index) on the same reads.
-Phases 7-9 run through the port's CLI with --device cuda and check the exact
-kernel launch counts of their runs.
+     (COMBINED_PINNED). align and twopass run the projected step (device
+     projection + re-finalization); the phase reports the entries and
+     junction winners it sent to the host per batch and its overflow
+     re-runs. FASTQ->SAM reads/s of plain mode (`align` on a genome-only
+     index), combined mode, and combined mode on the unprojected step (the
+     step before the projection) on the same reads, in turns; then the host
+     split of one 65,536-read batch in each (device step, fetch + to_host,
+     emit);
+ 10. sim: `simulate` of 262,144 reads of 50 bp on the bench index, flat,
+     with `--profile` (the pinned pass-1 .errorprofile of phase 5)
+     `--learned-indels`, and on the combined index; each FASTQ has the JAX
+     CLI's SHA-256 (SIM_PINNED); reads/s of each;
+ 11. benchmark: `benchmark --n-reads 262144` on the bench index; n_mapped
+     and n_correct equal the JAX CLI's (BENCH_PINNED); items_per_second;
+ 12. tools: `cluster` on phase 6's SAM and BAM, `sort` of both and
+     `convert` of the sorted BAM to SAM (TOOLS_PINNED), and `convert` of
+     the SAM to BAM and back to the same bytes.
+Phases 7-9 and 11 run through the port's CLI with --device cuda and check
+the exact kernel launch counts of their runs; phases 10 and 12 launch none.
 
-Then one JSON line on the kernels (launches summed over phases 5-9), and as
-the last line
+Then one JSON line on the kernels (launches summed over phases 5-12), and
+as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The worlds are pure functions of the seeds, so the digests can be
@@ -78,6 +93,25 @@ Phases 7-9 (RFLAGS = FLAGS with --max-read-len 36):
         W/comb/tp.sam --learned-gaps --pg-cl smoke --batch-size 4096 FLAGS
     python -m parasuite_tpu.cli align W/comb/cidx W/comb/xa.fastq \\
         W/comb/xa.sam --xa --pg-cl smoke --batch-size 4096 FLAGS
+
+Phases 10-12 (after the commands above):
+
+    python -m parasuite_tpu.cli simulate W/idx W/sim_flat.fastq \\
+        --n-reads 262144 --read-len 50 FLAGS
+    python -m parasuite_tpu.cli simulate W/idx W/sim_prof.fastq \\
+        --n-reads 262144 --read-len 50 --profile W/pin.sam.errorprofile \\
+        --learned-indels FLAGS
+    python -m parasuite_tpu.cli simulate W/comb/cidx W/comb/sim.fastq \\
+        --n-reads 262144 --read-len 50 FLAGS
+    python -m parasuite_tpu.cli benchmark W/idx --n-reads 262144 \\
+        --batch-size 4096 FLAGS
+    python -m parasuite_tpu.cli cluster W/idx W/all.sam W/clusters_sam.tsv \\
+        FLAGS
+    python -m parasuite_tpu.cli cluster W/idx W/all.bam W/clusters_bam.tsv \\
+        FLAGS
+    python -m parasuite_tpu.cli sort W/all.sam W/sorted.sam
+    python -m parasuite_tpu.cli sort W/all.bam W/sorted.bam
+    python -m parasuite_tpu.cli convert W/sorted.bam W/sorted_bam.sam
 
 xa_dropped is the `align.done` event of W/xa/log; the JAX CLI prints no
 rescue counters, so RESCUE_PINNED's are the JAX engines' `rescue_mapped`
@@ -203,6 +237,29 @@ COMBINED_PINNED = {
     "comb/xa.sam":
         "7714e7d4d1d7e71660258f9649bb6465f91afe96998100332c9f2db930c2f815",
 }
+# phases 10-12: the JAX CLI's outputs for the commands in the docstring
+N_SIM = 262_144
+SIM_PINNED = {
+    "sim_flat.fastq":
+        "de348cae39e276ccda0fec83ebe8c18f2aa589eccef579c63b400ce2d5a1baf5",
+    "sim_prof.fastq":
+        "b8c3ed3250594b923ac7a3a1eebbd82fe9a93fe98a77540b748c7a86b9ad12af",
+    "comb/sim.fastq":
+        "530889b5c276920b19a795560d78180e69e5ffb9d69042fad6825269f2fe9c69",
+}
+BENCH_PINNED = {"n_mapped": 259566, "n_correct": 259563}
+TOOLS_PINNED = {
+    "clusters_sam.tsv":
+        "2b57f716212ebd5c6b8cda3c4f135770c434740df2f0c981d0a4647f38184574",
+    "clusters_bam.tsv":
+        "de6d5c64a418808a84294366ff34a799c45a92a496634e30f98e2143704fb25a",
+    "sorted.sam":
+        "e023573ce95ae28477bb83ef600e0e869a8cae8ff682d4aea0d471fedd84171d",
+    "sorted_bam.sam":
+        "2edcecd6d6db0c28e2d1145ad7712d383960139c2de7c56d8f8249f6deec0353",
+}
+PACKED_KEYS = ("packed_batches", "packed_entries", "packed_junctions",
+               "packed_overflow")
 
 
 def sha256(path) -> str:
@@ -834,6 +891,30 @@ def rescue_phase(gpu: str) -> dict:
     return launches
 
 
+def _unprojected_align(comb, out) -> dict:
+    """`align` on the combined index through the unprojected step (the
+    candidate table to the host, every transcript row in the slow path):
+    streaming_align with the CLI's engine and supports_packed turned off.
+    -> the CLI's reads and reads_per_second."""
+    from parasuite_tpu.config import AlignConfig
+    from parasuite_tpu.index import KmerIndex
+    from parasuite_tpu_torch.pipeline.combined import (CombinedEngine,
+                                                       CombinedReference)
+    from parasuite_tpu_torch.pipeline.stream import streaming_align
+
+    cfg = AlignConfig(max_read_len=READ_LEN, kmer_size=12, batch_size=BATCH,
+                      max_candidates=8, max_occ=16)
+    engine = CombinedEngine(CombinedReference.load(comb / "cidx"),
+                            KmerIndex.load(comb / "cidx"), cfg,
+                            device="cuda")
+    engine.supports_packed = False
+    t0 = time.perf_counter()
+    n, _, _ = streaming_align(engine, comb / "all.fastq", comb / out,
+                              command_line="smoke")
+    return {"reads": n,
+            "reads_per_second": round(n / (time.perf_counter() - t0), 1)}
+
+
 def combined_phase(gpu: str) -> dict:
     t0 = time.perf_counter()
     comb = WORK / "comb"
@@ -850,39 +931,188 @@ def combined_phase(gpu: str) -> dict:
                           "--device", "cuda"])
 
     _reset_counters()
-    # FASTQ->SAM of plain and combined mode on the same reads, in turns
-    rates = {"plain": [], "combined": []}
-    for mode in ("plain", "combined", "combined", "plain"):
-        index = "gidx" if mode == "plain" else "cidx"
-        r = align(index, "all.fastq", f"{mode}.sam")
+    # FASTQ->SAM of plain mode, combined mode (projected step) and combined
+    # mode on the unprojected step, on the same reads, in turns
+    rates = {"plain": [], "combined": [], "combined_unprojected": []}
+    packed = dict.fromkeys(PACKED_KEYS, 0)
+    for mode in ("plain", "combined", "combined_unprojected",
+                 "combined_unprojected", "combined", "plain"):
+        if mode == "combined_unprojected":
+            r = _unprojected_align(comb, "unprojected.sam")
+        else:
+            r = align("gidx" if mode == "plain" else "cidx", "all.fastq",
+                      f"{mode}.sam")
         if r["reads"] != n_reads:
             raise AssertionError(f"combined: {mode} align wrote {r['reads']} "
                                  f"records for {n_reads} reads")
         rates[mode].append(r["reads_per_second"])
+        for k in PACKED_KEYS:
+            packed[k] += r.get(k, 0)
     tp = _cli_json(["twopass", str(comb / "cidx"), str(comb / "all.fastq"),
                     str(comb / "tp.sam"), "--learned-gaps", "--pg-cl",
                     "smoke", "--batch-size", str(BATCH), *FLAGS, "--device",
                     "cuda"])
+    for k in PACKED_KEYS:
+        packed[k] += tp[k]
     xa = align("cidx", "xa.fastq", "xa.sam", "--xa")
     launches = _counters()
     n_b = _n_batches(n_reads, BATCH)
     got = _digests(COMBINED_PINNED)
-    if sha256(comb / "combined.sam") != got["comb/tp.sam.pass1.sam"]:
-        raise AssertionError("combined: align SAM differs from the twopass "
-                             "pass-1 SAM")
+    for sam in ("combined.sam", "unprojected.sam"):
+        if sha256(comb / sam) != got["comb/tp.sam.pass1.sam"]:
+            raise AssertionError(f"combined: {sam} differs from the twopass "
+                                 f"pass-1 SAM")
+    if packed["packed_batches"] != 4 * n_b or packed["packed_junctions"] == 0:
+        raise AssertionError(f"combined: the projected step did not run as "
+                             f"expected: {packed}")
     n_xa = sum("\tXA:Z:" in line for line in _records(comb / "xa.sam"))
     plain_rate = float(np.median(rates["plain"]))
-    comb_rate = float(np.median(rates["combined"]))
+    per_batch = {k: packed[k] / packed["packed_batches"]
+                 for k in ("packed_entries", "packed_junctions")}
+    # each overflow re-runs its batch through the unprojected step: one
+    # more launch of each kernel
     _finish("combined", COMBINED_PINNED, got, launches,
-            4 * n_b + 2 * n_b + _n_batches(N_PIN, BATCH),
+            6 * n_b + 2 * n_b + _n_batches(N_PIN, BATCH)
+            + packed["packed_overflow"],
             seconds=round(time.perf_counter() - t0, 3),
             world_and_index_seconds=round(t_world, 3), reads=n_reads,
             fastq_to_sam_reads_per_s=rates,
-            combined_over_plain=comb_rate / plain_rate,
+            combined_over_plain=float(np.median(rates["combined"]))
+            / plain_rate,
+            unprojected_over_plain=float(np.median(
+                rates["combined_unprojected"])) / plain_rate,
+            projected=packed, host_per_batch=per_batch,
             twopass_reads=tp["reads"], gap_open=tp["gap_open"],
             gap_extend=tp["gap_extend"], xa_reads=xa["reads"],
             xa_records=n_xa, xa_dropped=xa["xa_dropped"], gpu=gpu)
+    combined_host_split(gpu)
     return launches
+
+
+class _NullWriter:
+    def write(self, line):
+        pass
+
+    def write_block(self, data):
+        pass
+
+
+def combined_host_split(gpu: str) -> None:
+    """Host split of one 65,536-read batch of the combined world, 3 runs
+    each: device step (align + synchronize), fetch + to_host, emit_sam into
+    a null writer; ms. Plain engine on the genome index, combined engine on
+    the projected and on the unprojected step."""
+    import torch
+
+    from parasuite_tpu.config import AlignConfig
+    from parasuite_tpu.index import KmerIndex, PackedReference
+    from parasuite_tpu.io.fastq import read_fastq
+    from parasuite_tpu_torch.pipeline.align import AlignerEngine
+    from parasuite_tpu_torch.pipeline.combined import (CombinedEngine,
+                                                       CombinedReference)
+
+    comb = WORK / "comb"
+    cfg = AlignConfig(max_read_len=READ_LEN, kmer_size=12, batch_size=BATCH,
+                      max_candidates=8, max_occ=16)
+    full = read_fastq(comb / "all.fastq", READ_LEN)
+    batch = type(full)(codes=full.codes[:BATCH], lengths=full.lengths[:BATCH],
+                       names=full.names[:BATCH], quals=full.quals[:BATCH])
+    cref = CombinedReference.load(comb / "cidx")
+    cidx = KmerIndex.load(comb / "cidx")
+    engines = {
+        "plain": AlignerEngine(PackedReference.load(comb / "gidx"),
+                               KmerIndex.load(comb / "gidx"), cfg,
+                               device="cuda"),
+        "combined": CombinedEngine(cref, cidx, cfg, device="cuda"),
+        "combined_unprojected": CombinedEngine(cref, cidx, cfg,
+                                               device="cuda"),
+    }
+    split = {}
+    for name, eng in engines.items():
+        step = (eng.align_device_packed if name == "combined"
+                else eng.align_device)
+        runs = {"device_step": [], "fetch_to_host": [], "emit": []}
+        for _ in range(1 + 3):             # the first run warms up
+            t0 = time.perf_counter()
+            out = step(batch.codes, batch.lengths)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            host = eng.to_host(batch, out)
+            t2 = time.perf_counter()
+            eng.emit_sam(batch, host, _NullWriter())
+            t3 = time.perf_counter()
+            for k, v in zip(runs, (t1 - t0, t2 - t1, t3 - t2)):
+                runs[k].append(round(1000 * v, 3))
+        split[name] = {k: v[1:] for k, v in runs.items()}
+    eng = engines["combined"]
+    split["combined"].update(entries=eng.packed_entries / eng.packed_batches,
+                             junctions=eng.packed_junctions
+                             / eng.packed_batches,
+                             overflow=eng.packed_overflow)
+    phase("combined_host_split", batch=BATCH, ms=split, gpu=gpu)
+
+
+def sim_phase(gpu: str) -> None:
+    """simulate through the port's CLI (host numpy, no kernel)."""
+    _reset_counters()
+    runs = {}
+    for name, index, extra in (
+            ("sim_flat.fastq", "idx", []),
+            ("sim_prof.fastq", "idx",
+             ["--profile", str(WORK / "pin.sam.errorprofile"),
+              "--learned-indels"]),
+            ("comb/sim.fastq", "comb/cidx", [])):
+        t0 = time.perf_counter()
+        res = _cli_json(["simulate", str(WORK / index), str(WORK / name),
+                         "--n-reads", str(N_SIM), "--read-len",
+                         str(READ_LEN), *extra, *FLAGS])
+        dt = time.perf_counter() - t0
+        runs[name] = {**res, "seconds": round(dt, 3),
+                      "reads_per_s": round(N_SIM / dt, 1)}
+    _finish("sim", SIM_PINNED, _digests(SIM_PINNED), _counters(), 0,
+            runs=runs, gpu=gpu)
+
+
+def benchmark_phase(gpu: str) -> dict:
+    _reset_counters()
+    res = _cli_json(["benchmark", str(WORK / "idx"), "--n-reads",
+                     str(N_SIM), "--batch-size", str(BATCH), *FLAGS,
+                     "--device", "cuda"])
+    launches = _counters()
+    # one warm-up batch, then every batch once
+    _finish("benchmark", BENCH_PINNED,
+            {k: res[k] for k in BENCH_PINNED}, launches,
+            1 + _n_batches(N_SIM, BATCH),
+            items_per_second=res["items_per_second"],
+            sensitivity=res["sensitivity"], precision=res["precision"],
+            seconds=res["seconds"], gpu=gpu)
+    return launches
+
+
+def tools_phase(gpu: str) -> None:
+    """cluster / sort / convert on phase 6's at-scale SAM and BAM."""
+    _reset_counters()
+    t0 = time.perf_counter()
+    out = {}
+    for argv in (["cluster", str(WORK / "idx"), str(WORK / "all.sam"),
+                  str(WORK / "clusters_sam.tsv"), *FLAGS],
+                 ["cluster", str(WORK / "idx"), str(WORK / "all.bam"),
+                  str(WORK / "clusters_bam.tsv"), *FLAGS],
+                 ["sort", str(WORK / "all.sam"), str(WORK / "sorted.sam")],
+                 ["sort", str(WORK / "all.bam"), str(WORK / "sorted.bam")],
+                 ["convert", str(WORK / "sorted.bam"),
+                  str(WORK / "sorted_bam.sam")],
+                 ["convert", str(WORK / "all.sam"), str(WORK / "all_c.bam")],
+                 ["convert", str(WORK / "all_c.bam"),
+                  str(WORK / "all_c.sam")]):
+        t1 = time.perf_counter()
+        res = _cli_json(argv)
+        out[f"{argv[0]} {Path(argv[-1 if argv[0] != 'cluster' else 2]).name}"
+            ] = {**res, "seconds": round(time.perf_counter() - t1, 3)}
+    if sha256(WORK / "all_c.sam") != AT_SCALE["all.sam"]:
+        raise AssertionError("tools: SAM -> BAM -> SAM changed the bytes")
+    _finish("tools", TOOLS_PINNED, _digests(TOOLS_PINNED), _counters(), 0,
+            seconds=round(time.perf_counter() - t0, 3), runs=out, gpu=gpu)
 
 
 def main() -> int:
@@ -904,6 +1134,9 @@ def main() -> int:
     runs = [pinned_twopass(), at_scale(truth, gpu)]
     device_rate(engine, gpu)
     runs += [xa_phase(gpu), rescue_phase(gpu), combined_phase(gpu)]
+    sim_phase(gpu)
+    runs.append(benchmark_phase(gpu))
+    tools_phase(gpu)
     for k in kernels:
         k["launches"] = sum(r[k["name"]] for r in runs)
     print(json.dumps({"kernels": kernels}))

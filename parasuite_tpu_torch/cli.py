@@ -1,17 +1,27 @@
-"""Command-line entry of the port: index, combine, align, twopass.
+"""Command-line entry of the port: index, combine, align, twopass,
+simulate, benchmark, cluster, sort, convert.
 
-Same subcommands, flags and outputs as parasuite_tpu.cli (the files are
-byte-identical for the same inputs, and either package reads the other's
-index files), plus --device (default cuda). A device that is asked for and
-missing is an error; the CLI never moves to the CPU on its own. align and
-twopass take --xa, --rescue-kmer and combined genome+transcriptome indexes
-(an index prefix with a .combined.json beside it). The other subcommands
-are not ported yet (ROADMAP Queue 1).
+Same subcommands, flags, outputs and stdout JSON keys as parasuite_tpu.cli
+(parasuite_tpu/cli.py:94-569; the files are byte-identical for the same
+inputs, and either package reads the other's index files). align, twopass
+and benchmark take --device (default cuda); a device that is asked for and
+missing is an error, and the CLI never moves to the CPU on its own. align
+and twopass take --xa, --rescue-kmer and combined genome+transcriptome
+indexes (an index prefix with a .combined.json beside it).
+
+index, sort and convert run parasuite_tpu.cli's own functions: they are
+numpy and the native host library, no framework. simulate uses the port's
+simulator (sim/generate.py, the same reads bit for bit); cluster its copies
+of the cluster caller. Not ported yet (the next slice, ROADMAP Queue 1):
+benchmark --scaling, dist-align and merge-shards.
 
     python -m parasuite_tpu_torch.cli index ref.fa idx --kmer-size 12
-    python -m parasuite_tpu_torch.cli combine ref.fa exons.tsv cidx
+    python -m parasuite_tpu_torch.cli simulate idx reads.fastq --n-reads 10000
     python -m parasuite_tpu_torch.cli twopass idx reads.fastq out.sam \\
         --learned-gaps --rescue-kmer 11 --device cuda
+    python -m parasuite_tpu_torch.cli benchmark idx --n-reads 262144
+    python -m parasuite_tpu_torch.cli cluster idx out.sam clusters.tsv
+    python -m parasuite_tpu_torch.cli combine ref.fa exons.tsv cidx
     python -m parasuite_tpu_torch.cli align cidx reads.fastq out.sam --xa
 """
 
@@ -24,7 +34,10 @@ import sys
 import time
 from pathlib import Path
 
-from parasuite_tpu.cli import _add_cfg_flags, _cfg_from_args, cmd_index
+import numpy as np
+
+from parasuite_tpu.cli import (_add_cfg_flags, _cfg_from_args, cmd_convert,
+                               cmd_index, cmd_sort)
 
 
 def _load_engine(args, cfg):
@@ -49,13 +62,16 @@ def _load_engine(args, cfg):
 
 
 def _engine_counters(engines) -> dict:
-    """XA and rescue counters summed over the engines of one command (only
-    the ones its options turn on)."""
+    """XA, rescue and projected-step counters summed over the engines of
+    one command (only the ones its options and index turn on)."""
     keys = []
     if engines[0].xa_tags:
         keys.append("xa_dropped")
     if engines[0].cfg.rescue_kmer:
         keys += ["rescue_mapped", "rescue_overflow"]
+    if engines[0].supports_packed:
+        keys += ["packed_batches", "packed_entries", "packed_junctions",
+                 "packed_overflow"]
     return {k: sum(getattr(e, k) for e in engines) for k in keys}
 
 
@@ -131,6 +147,153 @@ def cmd_twopass(args) -> int:
     return 0
 
 
+def cmd_simulate(args) -> int:
+    from parasuite_tpu.errormodel.infer import ErrorProfile
+    from parasuite_tpu.index import PackedReference
+    from parasuite_tpu.io.fastq import write_fastq
+    from parasuite_tpu_torch.sim.generate import (simulate_quality,
+                                                  simulate_reads)
+
+    cfg = _cfg_from_args(args)
+    ref = PackedReference.load(args.index_prefix)
+    probs = None
+    ins_rate, del_rate = args.ins_rate, args.del_rate
+    if args.profile:
+        prof = ErrorProfile.load(args.profile)
+        probs = prof.probs(cfg.profile_pseudocount)
+        if args.learned_indels:
+            # per-cycle indel rates from the learned profile (SURVEY.md §3.4)
+            ins_rate, del_rate = prof.indel_rates()
+    codes, lengths, truth = simulate_reads(
+        ref, args.n_reads, args.read_len, cfg, seed=cfg.seed,
+        profile_probs=probs, tc_rate=args.tc_rate,
+        ins_rate=ins_rate, del_rate=del_rate)
+    names = truth.names()
+    quals = (None if args.flat_qual
+             else simulate_quality(len(names), args.read_len, seed=cfg.seed))
+    write_fastq(args.out, names, codes, lengths, quals=quals)
+    n_indels = (int((truth.indel_kind > 0).sum())
+                if truth.indel_kind is not None else 0)
+    print(json.dumps({"tool": "simulate", "reads": args.n_reads,
+                      "conversions": int(truth.n_conversions.sum()),
+                      "errors": int(truth.n_errors.sum()),
+                      "indels": n_indels}))
+    return 0
+
+
+def cmd_benchmark(args) -> int:
+    """Simulate, align through align_device (warm-up batch excluded from
+    the timing), and score against the truth."""
+    from parasuite_tpu_torch.benchkit import (ThroughputTimer,
+                                              evaluate_against_truth)
+    from parasuite_tpu_torch.benchkit.timing import block_until_ready
+    from parasuite_tpu_torch.pipeline.align import fetch_host
+    from parasuite_tpu_torch.sim.generate import simulate_reads
+
+    if args.scaling:
+        print("benchmark: --scaling needs the data-parallel step "
+              "(parallel/, benchkit/scaling.py), which is the next slice "
+              "of the port (ROADMAP Queue 1); it never falls back to one "
+              "device", file=sys.stderr)
+        return 2
+    cfg = _cfg_from_args(args)
+    engine = _load_engine(args, cfg)
+    codes, lengths, truth = simulate_reads(engine.ref, args.n_reads,
+                                           args.read_len, cfg, seed=cfg.seed,
+                                           tc_rate=args.tc_rate)
+    B = cfg.batch_size
+    pad = (-len(codes)) % B
+    if pad:
+        codes = np.concatenate([codes, np.full((pad, args.read_len), 4,
+                                               dtype=np.int8)])
+        lengths = np.concatenate([lengths, np.zeros(pad, dtype=np.int32)])
+    # warm-up on the first batch (kernel build and first launches)
+    block_until_ready(engine.align_device(codes[:B], lengths[:B]))
+    timer = ThroughputTimer("align")
+    results = []
+    for i in range(0, len(codes), B):
+        timer.start()
+        r = engine.align_device(codes[i : i + B], lengths[i : i + B])
+        timer.stop(int((lengths[i : i + B] > 0).sum()), r)
+        results.append(r)
+    host = [fetch_host(r)[0] for r in results]
+    mapped = np.concatenate([r.mapped for r in host])
+    strand = np.concatenate([r.strand for r in host])
+    pos = np.concatenate([r.pos for r in host])
+    rep = evaluate_against_truth(truth, mapped, strand, pos)
+    print(json.dumps(timer.report(**rep.to_dict(), tool="benchmark")))
+    return 0
+
+
+def cluster_columns_python(sam_path, ref):
+    """Per-record SAM ingestion for cluster calling (fallback without the
+    native library; a copy of parasuite_tpu.cli.cluster_columns_python,
+    whose module-level imports pull in jax). -> (pos, span, tc)."""
+    from parasuite_tpu.io.sam import cigar_ref_span, read_sam
+    from parasuite_tpu.utils.dna import encode_seq
+    from parasuite_tpu_torch.pipeline.clusters import tc_count_from_cigar
+
+    name_to_idx = {n: i for i, n in enumerate(ref.names)}
+    _, records = read_sam(sam_path)
+    pos_l, span_l, tc_l = [], [], []
+    for r in records:
+        if r["flag"] & 0x4 or r["rname"] not in name_to_idx:
+            continue
+        ci = name_to_idx[r["rname"]]
+        packed = int(ref.starts[ci]) + r["pos"] - 1
+        span = cigar_ref_span(r["cigar"])
+        # SAM SEQ is genome-oriented; walk the CIGAR so I/D/N (gapped and
+        # junction records) keep the machine-frame T->C comparison in frame
+        seq = encode_seq(r["seq"])
+        tc = tc_count_from_cigar(ref.seq, packed, seq,
+                                 1 if r["flag"] & 0x10 else 0, r["cigar"])
+        pos_l.append(packed)
+        span_l.append(span)
+        tc_l.append(tc)
+    return (np.asarray(pos_l, dtype=np.int64),
+            np.asarray(span_l, dtype=np.int32),
+            np.asarray(tc_l, dtype=np.int32))
+
+
+def cmd_cluster(args) -> int:
+    from parasuite_tpu import native
+    from parasuite_tpu.index import PackedReference
+    from parasuite_tpu_torch.pipeline.clusters import (call_clusters,
+                                                       write_clusters)
+
+    cfg = _cfg_from_args(args)
+    ref = PackedReference.load(args.index_prefix)
+    sam = args.sam
+    is_bam = str(sam).endswith(".bam")
+    if native.available():
+        # streaming C++ scan; BAM input streams BGZF-decompressed records
+        # straight into the scanner
+        if is_bam:
+            pos, span, tc, _skipped = native.bam_cluster_columns(sam, ref)
+        else:
+            pos, span, tc, _skipped = native.sam_cluster_columns(sam, ref)
+    elif is_bam:
+        # fallback: decode to a temp SAM in a writable dir, always cleaned
+        import tempfile
+
+        from parasuite_tpu.io.bam import bam_to_sam
+
+        with tempfile.NamedTemporaryFile(suffix=".sam", delete=False) as tf:
+            tmp = tf.name
+        try:
+            bam_to_sam(sam, tmp)
+            pos, span, tc = cluster_columns_python(tmp, ref)
+        finally:
+            Path(tmp).unlink(missing_ok=True)
+    else:
+        pos, span, tc = cluster_columns_python(sam, ref)
+    clusters = call_clusters(ref, pos, span, tc, cfg)
+    write_clusters(args.out, clusters)
+    print(json.dumps({"tool": "cluster", "alignments": int(pos.shape[0]),
+                      "clusters": len(clusters)}))
+    return 0
+
+
 def cmd_combine(args) -> int:
     from parasuite_tpu_torch.pipeline.combined import build_combined_index
 
@@ -195,6 +358,68 @@ def build_parser() -> argparse.ArgumentParser:
                         "indel rates (ErrorProfile.gap_penalties)")
     _add_run_flags(p)
     p.set_defaults(fn=cmd_twopass)
+
+    p = sub.add_parser("simulate", help="simulate PAR-CLIP reads")
+    p.add_argument("index_prefix")
+    p.add_argument("out")
+    p.add_argument("--n-reads", dest="n_reads", type=int, default=10000)
+    p.add_argument("--read-len", dest="read_len", type=int, default=50)
+    p.add_argument("--tc-rate", dest="tc_rate", type=float, default=None)
+    p.add_argument("--profile", help="errorprofile for error injection")
+    p.add_argument("--ins-rate", dest="ins_rate", type=float, default=None,
+                   help="per-cycle insertion probability (one event max/read)")
+    p.add_argument("--del-rate", dest="del_rate", type=float, default=None,
+                   help="per-cycle deletion probability (one event max/read)")
+    p.add_argument("--learned-indels", dest="learned_indels",
+                   action="store_true",
+                   help="with --profile: draw indels from its learned "
+                        "per-cycle rates")
+    p.add_argument("--flat-qual", dest="flat_qual", action="store_true",
+                   help="emit constant 'I' quality strings instead of the "
+                        "decay-model per-cycle qualities")
+    _add_cfg_flags(p)
+    p.set_defaults(fn=cmd_simulate)
+
+    p = sub.add_parser("benchmark",
+                       help="simulate+align, report accuracy & speed")
+    p.add_argument("index_prefix")
+    p.add_argument("--scaling", help="comma-separated device counts for a "
+                   "weak-scaling report (not ported yet: exits non-zero)")
+    p.add_argument("--n-reads", dest="n_reads", type=int, default=10000)
+    p.add_argument("--read-len", dest="read_len", type=int, default=50)
+    p.add_argument("--tc-rate", dest="tc_rate", type=float, default=None)
+    p.add_argument("--device", default="cuda",
+                   help="torch device for the align step (default cuda; "
+                        "cpu runs the kernels' plain PyTorch versions)")
+    _add_cfg_flags(p)
+    p.set_defaults(fn=cmd_benchmark)
+
+    p = sub.add_parser("cluster", help="call binding-site clusters from SAM")
+    p.add_argument("index_prefix")
+    p.add_argument("sam")
+    p.add_argument("out")
+    p.add_argument("--cluster-min-reads", dest="cluster_min_reads", type=int)
+    _add_cfg_flags(p)
+    p.set_defaults(fn=cmd_cluster)
+
+    p = sub.add_parser("sort", help="coordinate-sort SAM/BAM (unmapped last)")
+    p.add_argument("infile")
+    p.add_argument("out")
+    p.add_argument("--min-mapq", dest="min_mapq", type=int, default=0,
+                   help="drop mapped records with MAPQ below this")
+    p.add_argument("--mapped-only", dest="mapped_only", action="store_true",
+                   help="drop unmapped records")
+    p.add_argument("--max-in-memory", dest="max_in_memory", type=int,
+                   default=4_000_000,
+                   help="records sorted in RAM before spilling runs to "
+                        "disk (the C++ path holds ~130 B/record; raise on "
+                        "big-RAM hosts to skip the spill/merge pass)")
+    p.set_defaults(fn=cmd_sort)
+
+    p = sub.add_parser("convert", help="SAM <-> BAM (direction by extension)")
+    p.add_argument("infile")
+    p.add_argument("out")
+    p.set_defaults(fn=cmd_convert)
     return ap
 
 

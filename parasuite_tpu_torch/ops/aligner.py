@@ -9,6 +9,11 @@ give the same values.
 
 align_batch_with_candidates (XA tags, combined mode) adds the per-candidate
 table of parasuite_tpu/ops/aligner.py::candidate_table to the same step.
+align_batch_combined_packed is combined mode's projected step
+(parasuite_tpu/ops/aligner.py:604-812, with finalize_core's src, nm_pos and
+nm_strand at :368-488): the genome projection and re-finalization in plain
+torch ops around the same two kernels, without the reference's wire
+bit-packing (:491-573).
 
 Candidate selection and extension go through the wrappers in cuda_seed.py
 and cuda_extend.py: the Hopper kernels for CUDA tensors, the plain PyTorch
@@ -179,20 +184,41 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
 
 def finalize_core(oriented, lengths, valid, strand, pos_key, dps, ug_eq,
                   diag, n_candidates, didx: DeviceIndex, sprof: ScoreParams,
-                  cfg: AlignConfig):
+                  cfg: AlignConfig, src=None, nm_pos=None, nm_strand=None):
     """Selection half of finalize over per-entry [B, n] arrays.
-    -> (AlignResult, best_idx [B] int32)."""
+    -> (AlignResult, best_idx [B] int32).
+
+    Combined mode re-runs the same selection on genome-projected (strand,
+    pos_key) entries (align_batch_combined_packed):
+
+      * src (optional, [B, n] int32 0/1): dedupe tie-break tier between
+        equal-score same-key twins — genome-source (0) entries survive over
+        transcript (1) ones, as in the host slow path;
+      * nm_pos / nm_strand (optional): the window of the winner's NM and
+        T->C counts. A junction winner's genome window is discontiguous, so
+        its counts read the combined-space (transcript) window, the same
+        bases its genome M segments cover.
+
+    With all three None the selection is finalize's."""
     B, n = valid.shape
     L = oriented.shape[2]
     G = didx.ref_seq.shape[0]
     dev = oriented.device
+    if nm_pos is None:
+        nm_pos = pos_key
+    if nm_strand is None:
+        nm_strand = strand
 
     # dedupe by (strand, pos_key): an entry is a duplicate if a strictly
-    # better twin exists — higher score, or equal score and lower index
+    # better twin exists — higher score, or equal score and lower (src,
+    # index) tier
     same = (strand[:, :, None] == strand[:, None, :]) & \
            (pos_key[:, :, None] == pos_key[:, None, :])
     ar = torch.arange(n, device=dev)
     tie = (ar[None, :] < ar[:, None])[None]
+    if src is not None:
+        tie = (src[:, None, :] < src[:, :, None]) | \
+              ((src[:, None, :] == src[:, :, None]) & tie)
     better = (dps[:, None, :] > dps[:, :, None]) | \
              ((dps[:, None, :] == dps[:, :, None]) & tie)
     dup = (same & better & valid[:, None, :]).any(dim=2)
@@ -225,6 +251,8 @@ def finalize_core(oriented, lengths, valid, strand, pos_key, dps, ug_eq,
     sel_diag = pick(diag)
     sel_ug_eq = pick(ug_eq)
     sel_score = pick(dps)
+    sel_nm_pos = pick(nm_pos)
+    sel_nm_strand = pick(nm_strand)
 
     # chromosome-boundary policy (oracle: whole ungapped span in one chrom)
     ci = torch.clamp(
@@ -237,16 +265,16 @@ def finalize_core(oriented, lengths, valid, strand, pos_key, dps, ug_eq,
 
     # ungapped NM and machine-frame T->C over the selected window
     i = torch.arange(L, dtype=torch.int32, device=dev)
-    ridx = sel_pos[:, None] + i[None, :]
+    ridx = sel_nm_pos[:, None] + i[None, :]
     inr = (ridx >= 0) & (ridx < G)
     rb = torch.where(inr, didx.ref_seq[torch.clamp(ridx, 0, G - 1).long()]
                      .to(torch.int32), 4)
     sel_read = oriented.gather(
-        1, sel_strand.long()[:, None, None].expand(B, 1, L))[:, 0]
+        1, sel_nm_strand.long()[:, None, None].expand(B, 1, L))[:, 0]
     mm = (rb != sel_read) | (rb == 4) | (sel_read == 4)
     in_len = i[None, :] < lengths[:, None]
     nm = (in_len & mm).sum(dim=1, dtype=torch.int32)
-    tc_hit = torch.where(sel_strand[:, None] == 1,
+    tc_hit = torch.where(sel_nm_strand[:, None] == 1,
                          (rb == 0) & (sel_read == 2),
                          (rb == 3) & (sel_read == 1))
     tc = (in_len & tc_hit).sum(dim=1, dtype=torch.int32)
@@ -347,3 +375,180 @@ def align_batch_with_candidates(didx: DeviceIndex, sprof: ScoreParams,
     table = candidate_table(oriented, lengths, min_scores, cand_diag,
                             cand_valid, *ext, cfg, didx.ref_seq.shape[0])
     return res, table
+
+
+# ---------------------------------------------------------------------------
+# combined genome+transcriptome step: device projection + re-finalization
+# ---------------------------------------------------------------------------
+
+class TxDeviceTables(NamedTuple):
+    """Transcript lookup tables on the engine's device for the in-step
+    genome projection of transcript candidates (combined mode).
+
+    The reference (parasuite_tpu/ops/aligner.py::TxDeviceTables) also
+    carries a page table, page_lut[pos >> page_shift] + one compare, because
+    jnp.searchsorted over [B, 2C] queries measured 70-108 ms per batch on
+    v5e. Here the chromosome index is torch.searchsorted over the
+    DeviceIndex's chromosome starts: one binary-search kernel over a few
+    hundred starts, and exact for any layout (the page table is exact only
+    under its one-boundary-per-page invariant, under which both give the
+    same index — tests/test_torch_combined.py holds the projection equal
+    field by field). So page_lut and starts_ext are left out.
+
+    gpos_tab[sp_off[t] + s] is the chrom-local genomic position of spliced
+    base s of transcript t (spliced-plus frame), so single-exon-ness is a
+    contiguity check of a window's two ends. int32 throughout: the engine
+    keeps a transcriptome of 2**31 spliced bases or more off this path."""
+
+    minus: torch.Tensor         # bool  [T]  '-' strand transcript
+    tlen: torch.Tensor          # int32 [T]  spliced length
+    gchrom_start: torch.Tensor  # int32 [T]  packed start of the genome chrom
+    sp_off: torch.Tensor        # int32 [T]  offset into gpos_tab
+    gpos_tab: torch.Tensor      # int32 [S]  spliced-plus -> chrom-local gpos
+
+
+class PackedCandidates(NamedTuple):
+    """The valid candidate entries of the rows that need the host (name of
+    the reference's wire record, parasuite_tpu/ops/aligner.py:616).
+
+    The rows with a junction-spanning, gapped or out-of-bounds candidate
+    ship their valid entries, compacted front-first in flat (row,
+    candidate) order — the order the host slow path dedupes and ranks in —
+    into a buffer of K = round(combined_wire_cap * B) entries. In the port
+    the fields ride unpacked (the reference bit-packs strand, ug_equal and
+    diag into a flags byte for the remote-TPU tunnel). n_sel is the true
+    count; past K the host re-runs the batch through the unprojected step.
+    Slots past n_sel hold entry 0, as in the reference."""
+
+    n_sel: torch.Tensor      # int32 []
+    row: torch.Tensor        # int32 [K] batch row of the entry
+    pos: torch.Tensor        # int32 [K] ungapped-key packed position
+    score: torch.Tensor      # int32 [K] DP score
+    strand: torch.Tensor     # int32 [K]
+    ug_equal: torch.Tensor   # bool  [K]
+    diag: torch.Tensor       # int32 [K]
+
+
+class PackedJunctions(NamedTuple):
+    """Junction winners of device-finalized rows (the reference's
+    parasuite_tpu/ops/aligner.py:604): row and spliced-table offset q0, from
+    which the host assembles the N CIGAR; every other field of the record
+    is final in the AlignResult. Compacted like PackedCandidates into
+    round(combined_wire_jun_cap * B) slots; n_jun past that re-runs the
+    batch unprojected."""
+
+    n_jun: torch.Tensor      # int32 []
+    row: torch.Tensor        # int32 [K]
+    q0: torch.Tensor         # int32 [K]
+
+
+def project_candidates_device(table: CandidateTable, lengths: torch.Tensor,
+                              didx: DeviceIndex, txt: TxDeviceTables,
+                              n_genome: int, tx_boundary: int):
+    """Per-entry genome projection for the combined step.
+
+    -> (proj_pos, proj_strand, is_tx, simple, q0, noncontig), all [B, n].
+    An entry is `simple` when the device can finalize its selection exactly
+    as the host slow path would: genome-direct ungapped entries inside one
+    chromosome, or transcript ungapped entries fully inside their
+    transcript — junction-spanning ones included, whose genomic start is
+    gpos_tab[q0] and whose only host-side need is the N CIGAR. noncontig
+    marks that junction case; q0 is the entry's offset into gpos_tab."""
+    pos = table.pos
+    L = lengths[:, None]
+    G = didx.ref_seq.shape[0]
+    T = txt.tlen.shape[0]
+    S = txt.gpos_tab.shape[0]
+    nc = didx.chrom_starts.shape[0]
+    ci = torch.clamp(torch.searchsorted(
+        didx.chrom_starts, torch.clamp(pos, 0, G - 1).contiguous(),
+        right=True) - 1, 0, nc - 1)
+    is_tx = pos >= tx_boundary
+    txi = torch.clamp(ci - n_genome, 0, max(T - 1, 0))
+    local = pos - didx.chrom_starts[ci]
+    tl = txt.tlen[txi]
+    minus = txt.minus[txi]
+    s0 = torch.where(minus, tl - (local + L), local)
+    ok_p = (local >= 0) & (local + L <= tl) & (s0 >= 0)
+    q0 = torch.clamp(s0, min=0) + txt.sp_off[txi]
+    gpos = txt.gpos_tab[torch.clamp(q0, 0, S - 1)]
+    gend = txt.gpos_tab[torch.clamp(q0 + L - 1, 0, S - 1)]
+    contig = gend == gpos + L - 1
+    proj_pos = torch.where(is_tx, txt.gchrom_start[txi] + gpos, pos)
+    proj_strand = torch.where(is_tx & minus, 1 - table.strand, table.strand)
+    g_inb = (local >= 0) & (pos + L - 1 < didx.chrom_ends[ci])
+    simple = table.ug_equal & torch.where(is_tx, ok_p, g_inb)
+    noncontig = is_tx & table.ug_equal & ok_p & ~contig
+    return proj_pos, proj_strand, is_tx, simple, q0, noncontig
+
+
+def _compact(mask: torch.Tensor, cap: int) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Stable compaction without a host sync: -> (count int32 [], flat
+    indices int64 [cap] of the first `cap` True entries of mask, in order,
+    0 in the slots past the count). Each True entry scatters its index to
+    its rank (cumsum); entries past the cap and False entries go to a
+    discard slot."""
+    rank = torch.cumsum(mask, 0) - 1
+    slot = torch.where(mask & (rank < cap), rank, cap)
+    buf = torch.zeros(cap + 1, dtype=torch.int64, device=mask.device)
+    buf.scatter_(0, slot, torch.arange(mask.shape[0], device=mask.device))
+    return mask.sum(dtype=torch.int32), buf[:cap]
+
+
+def align_batch_combined_packed(didx: DeviceIndex, sprof: ScoreParams,
+                                txt: TxDeviceTables, codes: torch.Tensor,
+                                lengths: torch.Tensor,
+                                min_scores: torch.Tensor, cfg: AlignConfig,
+                                n_genome: int, tx_boundary: int,
+                                cap_entries: int, cap_junctions: int):
+    """Combined-mode align step with the genome projection on the device
+    (the reference's align_batch_combined_packed, without its wire
+    bit-packing: codes go up as int8, the AlignResult comes back as is).
+
+    Every single-exon or junction-spanning ungapped transcript candidate is
+    projected to genome coordinates and the finalize selection re-runs on
+    the projected (strand, pos), so a typical exonic read (transcript hit
+    plus its genomic twin) is deduped, ranked and MAPQ'd on the device,
+    exactly as the host slow path would. Only rows with a gapped or
+    out-of-bounds candidate ship their entries (PackedCandidates); junction
+    winners of the other rows ship (row, q0) (PackedJunctions).
+    -> (AlignResult, PackedCandidates, PackedJunctions), on the device;
+    nothing here waits for it."""
+    oriented, cand_diag, cand_valid, ext = _extend_stages(
+        didx, sprof, codes, lengths, cfg)
+    table = candidate_table(oriented, lengths, min_scores, cand_diag,
+                            cand_valid, *ext, cfg, didx.ref_seq.shape[0])
+    B, n = table.valid.shape
+    proj_pos, proj_strand, is_tx, simple, q0, noncontig = \
+        project_candidates_device(table, lengths, didx, txt, n_genome,
+                                  tx_boundary)
+    n_cands = cand_valid.reshape(B, n).sum(dim=1, dtype=torch.int32)
+    # junction winners' NM/T->C windows read the combined-space frame
+    nm_pos = torch.where(noncontig, table.pos, proj_pos)
+    nm_strand = torch.where(noncontig, table.strand, proj_strand)
+    res, best_idx = finalize_core(
+        oriented, lengths, table.valid, proj_strand, proj_pos, table.score,
+        table.ug_equal, table.diag, n_cands, didx, sprof, cfg,
+        src=is_tx.to(torch.int32), nm_pos=nm_pos, nm_strand=nm_strand)
+
+    any_tx = (table.valid & is_tx).any(dim=1)
+    row_simple = ~(table.valid & ~simple).any(dim=1)
+    needs_host = any_tx & ~row_simple
+    n_sel, sel = _compact((table.valid & needs_host[:, None]).reshape(-1),
+                          cap_entries)
+
+    def entries(x):
+        return x.reshape(-1)[sel]
+
+    pc = PackedCandidates(
+        n_sel=n_sel, row=(sel // n).to(torch.int32), pos=entries(table.pos),
+        score=entries(table.score), strand=entries(table.strand),
+        ug_equal=entries(table.ug_equal), diag=entries(table.diag))
+
+    bi = best_idx[:, None].long()
+    win_nc = noncontig.gather(1, bi)[:, 0] & res.mapped & ~needs_host
+    n_jun, jsel = _compact(win_nc, cap_junctions)
+    pj = PackedJunctions(n_jun=n_jun, row=jsel.to(torch.int32),
+                         q0=q0.gather(1, bi)[:, 0][jsel])
+    return res, pc, pj

@@ -5,16 +5,25 @@ A copy of parasuite_tpu/pipeline/combined.py (that package imports jax when
 it is imported), pinned to it by tests/test_torch_combined.py. The host half
 (Transcript, annotation parsers, splice_transcript, CombinedReference,
 project_to_genome, build_combined_index) is numpy and unchanged, so either
-package loads the other's index files. CombinedEngine runs the device step
-on the engine's device through align_batch_with_candidates and keeps the
-reference's unpacked to_host branch: the compacted PackedCandidates wire
-and the device projection exist for the remote-TPU tunnel and are not
-ported (the reference pins both branches equal, test_packed_wire_parity).
+package loads the other's index files.
+
+CombinedEngine streams through the projected step, as the reference does
+without XA (combined.py:305-339): ops/aligner.py::align_batch_combined_packed
+projects transcript candidates to the genome and finalizes every row it
+can on the device, junction winners included; to_host takes those rows
+verbatim, builds the junction winners' N CIGARs from the spliced->genomic
+table, and sends only the rows with gapped or out-of-bounds candidates
+through the numpy slow path. align_device (the unprojected step: the
+AlignResult plus the whole CandidateTable) serves XA tags, a transcriptome
+of 2**31 spliced bases or more, and the re-run of a batch whose entries
+overflow the compaction caps. The reference's wire bit-packing for the
+remote-TPU tunnel is not ported: the projected step's outputs ride
+unpacked.
 
 Transcripts are packed as extra "chromosomes" (name prefix "tx::") into ONE
 PackedReference, so a single index and a single device pass cover both
-spaces. Projection back to genome is a host-side exon-table walk, emitting
-spliced CIGARs with N (intron skip) ops for junction-spanning reads.
+spaces. Projection back to genome emits spliced CIGARs with N (intron
+skip) ops for junction-spanning reads.
 
 Annotation input: TSV with columns
     tx_id  chrom  strand(+/-)  exon_starts(comma,0-based)  exon_ends(comma)
@@ -29,6 +38,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from parasuite_tpu.config import AlignConfig
 from parasuite_tpu.index.kmer import KmerIndex
@@ -38,6 +48,9 @@ from parasuite_tpu_torch.pipeline.align import (AlignerEngine, HostAlignments,
                                                 LazyCigars, fetch_host,
                                                 host_tracebacks_batch,
                                                 orient_rows)
+from parasuite_tpu_torch.ops.aligner import (PackedCandidates,
+                                              TxDeviceTables,
+                                              align_batch_combined_packed)
 from parasuite_tpu_torch.pipeline.clusters import tc_count_from_cigar
 
 TX_PREFIX = "tx::"
@@ -245,6 +258,23 @@ def _is_single_m(cigar) -> bool:
     return len(cigar) == 1 and cigar[0][0] == "M"
 
 
+def _junction_cigar(win: np.ndarray) -> list:
+    """M/N CIGAR of an ungapped read whose bases sit at the chrom-local
+    genomic positions win (a gpos_tab window): an N op for every jump.
+    Zero-length introns merge into one M run, as project_to_genome's
+    emit() merges them."""
+    brk = np.nonzero(np.diff(win) != 1)[0]
+    cigar: list = []
+    prev = 0
+    for bki in brk:
+        bki = int(bki)
+        cigar.append(("M", bki + 1 - prev))
+        cigar.append(("N", int(win[bki + 1] - win[bki]) - 1))
+        prev = bki + 1
+    cigar.append(("M", int(win.shape[0]) - prev))
+    return cigar
+
+
 class CombinedEngine(AlignerEngine):
     """Aligns against the combined genome+transcriptome packing, projects
     transcript hits to genome space, and re-finalizes uniqueness/X0/MAPQ in
@@ -253,9 +283,15 @@ class CombinedEngine(AlignerEngine):
     Genome chromosomes are packed first and identically in both the combined
     and genome-only references, so genome-direct packed positions transfer
     unchanged; SAM records are emitted against the genome-only reference.
-    Subclasses AlignerEngine: inherits set_profile, the emit path and the
-    device step; overrides align_device (the candidate table is needed for
-    the genome-space re-finalization) and to_host.
+    Subclasses AlignerEngine: inherits set_profile and the emit path; adds
+    the projected step align_device_packed (streaming_align's step whenever
+    supports_packed), overrides align_device (the unprojected step, which
+    brings the candidate table) and to_host (either step's output).
+
+    Counters of the projected step: packed_batches, packed_entries and
+    packed_junctions (entries and junction winners sent to the host), and
+    packed_overflow (batches re-run through align_device because a cap was
+    exceeded; each re-run is one more launch of each kernel).
     """
 
     # combined profile counts accumulate host-side from the EMITTED records:
@@ -296,6 +332,17 @@ class CombinedEngine(AlignerEngine):
                              if len(combined.ref.names) > n_genome
                              else int(combined.ref.total_len))
         self._build_tx_tables()
+        self.packed_batches = 0
+        self.packed_entries = 0
+        self.packed_junctions = 0
+        self.packed_overflow = 0
+        # the projected step (combined.py:305-339 of the reference): not
+        # with XA, which needs every row's candidate table on the host, and
+        # not past int32 spliced offsets (a >2 Gbp spliced transcriptome)
+        self.supports_packed = (
+            not xa_tags and int(self._tx_len.sum()) + len(self._txs) < 2**31)
+        if self.supports_packed:
+            self._txt = self._build_tx_device_tables()
 
     def _build_tx_tables(self) -> None:
         """Flat per-transcript arrays for the vectorized projection.
@@ -340,37 +387,117 @@ class CombinedEngine(AlignerEngine):
         else:
             self._h_gpos = np.zeros(1, dtype=np.int64)
 
+    def _build_tx_device_tables(self) -> TxDeviceTables:
+        """Host exon tables -> TxDeviceTables on the engine's device (the
+        reference's _build_tx_device_tables, combined.py:385-425, without
+        the page table: see TxDeviceTables)."""
+        txs = self._txs
+        if not txs:
+            z32 = np.zeros(1, dtype=np.int32)
+            minus, tlen, gstart, sp_off, gpos_tab = (
+                np.zeros(1, dtype=bool), z32, z32, z32, z32)
+        else:
+            tlen = self._tx_len.astype(np.int32)
+            sp_off = self._h_spoff.astype(np.int32)
+            gpos_tab = self._h_gpos.astype(np.int32)
+            gstart = self.genome_ref.starts[self._tx_gci].astype(np.int32)
+            minus = self._tx_minus
+        dev = self.device
+        return TxDeviceTables(
+            minus=torch.from_numpy(np.array(minus, dtype=bool)).to(dev),
+            tlen=torch.from_numpy(np.array(tlen)).to(dev),
+            gchrom_start=torch.from_numpy(np.array(gstart)).to(dev),
+            sp_off=torch.from_numpy(np.array(sp_off)).to(dev),
+            gpos_tab=torch.from_numpy(np.array(gpos_tab)).to(dev))
+
     def align_device(self, codes, lengths):
-        """Device step -> (AlignResult in combined space, CandidateTable),
-        left on the device."""
+        """Unprojected step -> (AlignResult in combined space,
+        CandidateTable), left on the device."""
         return self._step(self.didx, self.cfg, codes, lengths,
                           with_candidates=True)
+
+    def align_device_packed(self, codes, lengths, with_counts: bool = False):
+        """Projected step -> (AlignResult, PackedCandidates,
+        PackedJunctions), left on the device; the caps are
+        round(combined_wire_cap * B) entries and
+        round(combined_wire_jun_cap * B) junction winners.
+
+        Profile counts are not fused here: combined counts accumulate on
+        the host from the emitted records (counts_from_host), so
+        with_counts must stay False."""
+        if with_counts:
+            raise ValueError("combined mode counts profiles host-side "
+                             "(counts_from_host); with_counts unsupported")
+        cfg = self.cfg
+        B = codes.shape[0]
+        c, ln = self._upload(codes, lengths)
+        ms = self._ms_table[torch.clamp(ln, 0, cfg.max_read_len).long()]
+        return align_batch_combined_packed(
+            self.didx, self.sprof, self._txt, c, ln, ms, cfg,
+            n_genome=self._n_genome, tx_boundary=self._tx_boundary,
+            cap_entries=max(1, int(round(cfg.combined_wire_cap * B))),
+            cap_junctions=max(1, int(round(cfg.combined_wire_jun_cap * B))))
 
     def to_host(self, batch, devout):
         """-> HostAlignments in GENOME packed coordinates, CIGARs may contain
         N ops for junction-spanning transcript hits.
 
-        Fast path: reads with NO valid transcript-space candidate take the
-        device finalize verbatim (in combined space it equals the plain
-        genome finalize when no tx candidate exists, since transcripts pack
-        after the genome). Reads with a transcript hit go through a
-        numpy-vectorized projection/re-finalize (_slow_path) over the flat
-        stream of their valid candidate entries in (row, candidate) order.
+        devout is the unprojected (AlignResult, CandidateTable) or the
+        projected (AlignResult, PackedCandidates, PackedJunctions); both
+        reduce to the same flat stream of valid entries in (row, candidate)
+        order, so the re-finalization is the same.
+
+        Fast path: rows with no entry on that stream take the device
+        finalize verbatim. Unprojected, those are the rows without a
+        transcript candidate (in combined space their finalize equals the
+        plain genome finalize, since transcripts pack after the genome);
+        projected, every row the device could finalize in genome space,
+        whose junction winners get their N CIGAR here from the
+        spliced->genomic table. The other rows go through the numpy
+        projection/re-finalize (_slow_path). A projected batch whose
+        entries or junction winners overflow their caps re-runs through
+        the unprojected step.
         """
         cfg = self.cfg
-        res, table = fetch_host(*devout)  # one device->host transfer
-        valid = table.valid
-        pos = table.pos
-        B = valid.shape[0]
-        any_tx = (valid & (pos >= self._tx_boundary)).any(axis=1)
-        mask = valid & any_tx[:, None]
-        g_rows, g_cand = np.nonzero(mask)  # row-major = entry order
-        e_st = table.strand[g_rows, g_cand].astype(np.int64)
-        e_pos = pos[g_rows, g_cand].astype(np.int64)
-        e_score = table.score[g_rows, g_cand].astype(np.int64)
-        e_ug = table.ug_equal[g_rows, g_cand]
-        e_diag = table.diag[g_rows, g_cand].astype(np.int64)
-        g_rows = g_rows.astype(np.int64)
+        table = pj = None
+        n_jun = 0
+        if isinstance(devout[1], PackedCandidates):
+            if self.xa_tags:
+                raise RuntimeError("combined XA mode requires the "
+                                   "unprojected candidate table "
+                                   "(supports_packed is False with xa_tags)")
+            res, pc, pj = fetch_host(*devout)  # one device->host transfer
+            n_sel, n_jun = int(pc.n_sel), int(pj.n_jun)
+            self.packed_batches += 1
+            if n_sel > pc.row.shape[0] or n_jun > pj.row.shape[0]:
+                self.packed_overflow += 1
+                return self.to_host(
+                    batch, self.align_device(batch.codes, batch.lengths))
+            self.packed_entries += n_sel
+            self.packed_junctions += n_jun
+            g_rows = pc.row[:n_sel].astype(np.int64)
+            e_st = pc.strand[:n_sel].astype(np.int64)
+            e_pos = pc.pos[:n_sel].astype(np.int64)
+            e_score = pc.score[:n_sel].astype(np.int64)
+            e_ug = pc.ug_equal[:n_sel]
+            e_diag = pc.diag[:n_sel].astype(np.int64)
+            B = batch.codes.shape[0]
+            any_tx = np.zeros(B, dtype=bool)
+            any_tx[g_rows] = True
+        else:
+            res, table = fetch_host(*devout)  # one device->host transfer
+            valid = table.valid
+            pos = table.pos
+            B = valid.shape[0]
+            any_tx = (valid & (pos >= self._tx_boundary)).any(axis=1)
+            mask = valid & any_tx[:, None]
+            g_rows, g_cand = np.nonzero(mask)  # row-major = entry order
+            e_st = table.strand[g_rows, g_cand].astype(np.int64)
+            e_pos = pos[g_rows, g_cand].astype(np.int64)
+            e_score = table.score[g_rows, g_cand].astype(np.int64)
+            e_ug = table.ug_equal[g_rows, g_cand]
+            e_diag = table.diag[g_rows, g_cand].astype(np.int64)
+            g_rows = g_rows.astype(np.int64)
         cref = self.combined.ref
 
         out_mapped = np.zeros(B, dtype=bool)
@@ -414,6 +541,22 @@ class CombinedEngine(AlignerEngine):
                 out_tc[b] = tc_count_from_cigar(cref.seq, p,
                                                 om[k, : int(lens[b])],
                                                 int(out_strand[b]), cigar)
+
+        # junction winners the device finalized (projected step): the
+        # record is final except its N CIGAR — one window gather from the
+        # spliced->genomic table and a diff per winner
+        if n_jun:
+            rows_j = pj.row[:n_jun].astype(np.int64)
+            q0_j = pj.q0[:n_jun].astype(np.int64)
+            lens_j = lens[rows_j]
+            w_idx = np.minimum(q0_j[:, None]
+                               + np.arange(int(lens_j.max()))[None, :],
+                               self._h_gpos.shape[0] - 1)
+            gw = self._h_gpos[w_idx]
+            for w_i in range(n_jun):
+                b = int(rows_j[w_i])
+                out_cigars[b] = _junction_cigar(gw[w_i, : int(lens_j[w_i])])
+                out_ug[b] = False
 
         xa = None
         if self.xa_tags:
@@ -553,22 +696,12 @@ class CombinedEngine(AlignerEngine):
                 gw = self._h_gpos[w_idx]
                 for w_i, kk in enumerate(jun):
                     k = int(t_ug[kk])
-                    lnk = int(lnj[w_i])
-                    win = gw[w_i, :lnk]
-                    brk = np.nonzero(np.diff(win) != 1)[0]
-                    gcigar: list = []
-                    prev = 0
-                    for bki in brk:
-                        bki = int(bki)
-                        gcigar.append(("M", bki + 1 - prev))
-                        gcigar.append(("N", int(win[bki + 1] - win[bki]) - 1))
-                        prev = bki + 1
-                    gcigar.append(("M", lnk - prev))
+                    win = gw[w_i, : int(lnj[w_i])]
                     f_ok[k] = True
                     f_strand[k] = e_st[k] ^ minus[kk]
                     f_gci[k] = int(gci_t[kk])
                     f_gpk[k] = int(starts[int(gci_t[kk])]) + int(win[0])
-                    cigar_over[k] = gcigar
+                    cigar_over[k] = _junction_cigar(win)
 
         # --- gapped entries (<<1%): batched host DP, per-entry projection ---
         gap_idx = np.nonzero((~e_ug) & (ci >= 0))[0]

@@ -265,14 +265,16 @@ def test_combined_to_host_equals_reference(case, genome, small_cfg):
     else:
         codes, lengths = _random_soup(genome, seed=int(case[4:]))
     jeng, teng = _engines(genome, small_cfg)
-    assert jeng.supports_packed and not teng.supports_packed
+    assert jeng.supports_packed and teng.supports_packed
     batch = _mk_batch(codes, lengths)
     want_u = jeng.to_host(batch, jeng.align_device(codes, lengths))
     want_p = jeng.to_host(batch, jeng.align_device_packed(codes, lengths))
     got = teng.to_host(batch, teng.align_device(codes, lengths))
+    got_p = teng.to_host(batch, teng.align_device_packed(codes, lengths))
     n = codes.shape[0]
-    _hosts_equal(want_u, got, n)
-    _hosts_equal(want_p, got, n)
+    for g in (got, got_p):
+        _hosts_equal(want_u, g, n)
+        _hosts_equal(want_p, g, n)
     assert any(len(got.cigars[i]) > 1 for i in range(n))
     if case == "junctions":
         ci, local = teng.genome_ref.locate(got.pos)
@@ -431,3 +433,142 @@ def test_cli_combined_xa_rescue_byte_identical(tmp_path, genome):
         assert (td / name).read_bytes() == (jd / name).read_bytes(), name
     assert b"XA:Z:" in (td / "xa.sam").read_bytes()
     assert re.search(rb"\t\d+M\d+N\d+M", (td / "ctp.sam").read_bytes())
+
+
+# ---------------------------------------------------------------------------
+# the projected step (device projection + re-finalization)
+# ---------------------------------------------------------------------------
+
+def _to_torch(nt, cls):
+    return cls(*(torch.from_numpy(np.array(x)) for x in nt))
+
+
+@pytest.mark.parametrize("case", ["parity", "overflow"])
+def test_projected_step_equals_reference(case, genome, small_cfg):
+    """tests/test_combined.py::test_packed_wire_parity and
+    ::test_packed_wire_overflow_fallback on the port: the projected step's
+    to_host equals the JAX engine's packed and unpacked to_host (tolerance
+    0); the soup sends more than 5 junction winners through the device
+    path; caps of 0.02 overflow, re-run the batch unprojected and give the
+    same records."""
+    cfg = (small_cfg if case == "parity" else small_cfg.replace(
+        combined_wire_cap=0.02, combined_wire_jun_cap=0.02))
+    codes, lengths = _random_soup(genome, seed=99 if case == "parity" else 7)
+    jeng, teng = _engines(genome, cfg)
+    batch = _mk_batch(codes, lengths)
+    want_u = jeng.to_host(batch, jeng.align_device(codes, lengths))
+    want_p = jeng.to_host(batch, jeng.align_device_packed(codes, lengths))
+    out = teng.align_device_packed(codes, lengths)
+    _, pc, pj = out
+    got = teng.to_host(batch, out)
+    n = codes.shape[0]
+    _hosts_equal(want_u, got, n)
+    _hosts_equal(want_p, got, n)
+    assert _emitted(teng, batch, got) == _emitted(jeng, batch, want_u)
+    over = int(pc.n_sel) > pc.row.shape[0] or int(pj.n_jun) > pj.row.shape[0]
+    if case == "parity":
+        assert int(pj.n_jun) > 5 and not over
+        assert (teng.packed_batches, teng.packed_overflow) == (1, 0)
+        assert teng.packed_junctions == int(pj.n_jun)
+    else:
+        assert over and teng.packed_overflow == 1
+
+
+def _jax_tx_tables(jeng):
+    """The JAX engine's TxDeviceTables and page shift, as its __init__
+    derives them."""
+    starts = jeng.combined.ref.starts.astype(np.int64)
+    min_gap = int(np.diff(starts).min()) if starts.shape[0] > 1 else 1 << 8
+    page_shift = max(0, min(8, int(min_gap).bit_length() - 1))
+    return jeng._build_tx_device_tables(page_shift), page_shift
+
+
+def test_project_candidates_device_equals_reference(genome, small_cfg):
+    """project_candidates_device against the jnp function on the same
+    CandidateTable, field by field: the soup's real table, and one with
+    positions spread over the whole packing (before the first chromosome,
+    spacers, transcript ends, past the end) on both strands."""
+    import jax.numpy as jnp
+
+    from parasuite_tpu.ops import aligner as ja
+    from parasuite_tpu_torch.ops import aligner as ta
+
+    codes, lengths = _random_soup(genome, seed=99)
+    jeng, teng = _engines(genome, small_cfg)
+    _, jtab = jeng.align_device(codes, lengths)
+    jtab = ja.CandidateTable(*(np.asarray(x) for x in jtab))
+    rng = np.random.default_rng(8)
+    G = int(jeng.combined.ref.total_len)
+    spread = jtab._replace(
+        valid=rng.random(jtab.valid.shape) < 0.7,
+        strand=rng.integers(0, 2, jtab.strand.shape).astype(np.int32),
+        pos=rng.integers(-80, G + 80, jtab.pos.shape).astype(np.int32),
+        ug_equal=rng.random(jtab.valid.shape) < 0.8)
+    txt, page_shift = _jax_tx_tables(jeng)
+    lens = lengths.copy()
+    lens[::5] = 37
+    for table in (jtab, spread):
+        want = ja.project_candidates_device(
+            ja.CandidateTable(*(jnp.asarray(x) for x in table)),
+            jnp.asarray(lens), jeng.didx, txt, jeng._n_genome,
+            jeng._tx_boundary, page_shift)
+        got = ta.project_candidates_device(
+            _to_torch(table, ta.CandidateTable), torch.from_numpy(lens),
+            teng.didx, teng._txt, teng._n_genome, teng._tx_boundary)
+        names = ("proj_pos", "proj_strand", "is_tx", "simple", "q0",
+                 "noncontig")
+        for name, w, g in zip(names, want, got):
+            w = np.asarray(w)
+            np.testing.assert_array_equal(g.numpy().astype(w.dtype), w,
+                                          err_msg=name)
+        assert np.asarray(want[5]).any() and np.asarray(want[2]).any()
+
+
+def test_finalize_core_src_nm_equals_reference(genome, small_cfg):
+    """finalize_core with src, nm_pos and nm_strand against the jnp
+    function: random entries with many same-key twins and score ties, so
+    the src tier and the NM window decide."""
+    import jax.numpy as jnp
+
+    from parasuite_tpu.ops import aligner as ja
+    from parasuite_tpu_torch.ops import aligner as ta
+
+    jeng, teng = _engines(genome, small_cfg)
+    rng = np.random.default_rng(17)
+    B, n, L = 48, 2 * small_cfg.max_candidates, 50
+    G = int(jeng.combined.ref.total_len)
+    codes, lengths = _random_soup(genome, n=B, seed=3)
+    lengths[::7] = 44
+    base = rng.integers(0, G - 200, (B, 1))
+    arrays = dict(
+        valid=rng.random((B, n)) < 0.8,
+        strand=rng.integers(0, 2, (B, n)).astype(np.int32),
+        pos_key=(base + rng.integers(0, 4, (B, n))).astype(np.int32),
+        dps=rng.integers(40, 44, (B, n)).astype(np.int32),
+        ug_eq=rng.random((B, n)) < 0.8,
+        diag=(base + rng.integers(0, 6, (B, n))).astype(np.int32),
+        n_candidates=rng.integers(0, n + 1, B).astype(np.int32),
+        src=rng.integers(0, 2, (B, n)).astype(np.int32),
+        nm_pos=(base + rng.integers(-3, 120, (B, n))).astype(np.int32),
+        nm_strand=rng.integers(0, 2, (B, n)).astype(np.int32))
+    j_or = ja.orient_reads(jnp.asarray(codes), jnp.asarray(lengths))
+    t_or = ta.orient_reads(torch.from_numpy(codes),
+                           torch.from_numpy(lengths))
+    order = ("valid", "strand", "pos_key", "dps", "ug_eq", "diag",
+             "n_candidates")
+    extra = ("src", "nm_pos", "nm_strand")
+    want, w_idx = ja.finalize_core(
+        j_or, jnp.asarray(lengths), *(jnp.asarray(arrays[k]) for k in order),
+        jeng.didx, jeng.sprof, small_cfg,
+        **{k: jnp.asarray(arrays[k]) for k in extra})
+    got, g_idx = ta.finalize_core(
+        t_or, torch.from_numpy(lengths),
+        *(torch.from_numpy(arrays[k]) for k in order), teng.didx,
+        teng.sprof, small_cfg,
+        **{k: torch.from_numpy(arrays[k]) for k in extra})
+    np.testing.assert_array_equal(g_idx.numpy(), np.asarray(w_idx))
+    for f in ta.AlignResult._fields:
+        w = np.asarray(getattr(want, f))
+        np.testing.assert_array_equal(getattr(got, f).numpy().astype(w.dtype),
+                                      w, err_msg=f)
+    assert np.asarray(want.mapped).sum() > B // 2

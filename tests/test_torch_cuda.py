@@ -177,19 +177,15 @@ def test_rescue_engine_on_card_equals_cpu(cuda, tiny_ref):
     assert engines[0].rescue_mapped > 0 and engines[0].rescue_overflow > 0
 
 
-def test_combined_engine_on_card_equals_cpu(cuda):
-    """CombinedEngine with XA tags on genomic, exonic and junction reads:
-    to_host on the card equals the CPU engine's, XA strings included."""
+def _combined_world():
+    """Combined reference (two transcripts, a genomic duplicate) and 128
+    genomic, exonic and junction reads with one substitution each."""
     from parasuite_tpu.io.batch import ReadBatch
     from parasuite_tpu.utils.dna import revcomp_codes
-    from parasuite_tpu_torch.pipeline.combined import (CombinedEngine,
-                                                       CombinedReference,
+    from parasuite_tpu_torch.pipeline.combined import (CombinedReference,
                                                        Transcript,
                                                        splice_transcript)
 
-    cfg = AlignConfig(max_read_len=50, batch_size=64, kmer_size=8,
-                      max_seeds=4, max_occ=32, max_candidates=8,
-                      band_width=3, chrom_spacer=64)
     rng = np.random.default_rng(77)
     genome = {"chrA": rng.integers(0, 4, 6000).astype(np.int8)}
     genome["chrA"][300:350] = genome["chrA"][5300:5350]   # a duplicate
@@ -209,13 +205,53 @@ def test_combined_engine_on_card_equals_cpu(cuda):
         r[int(rng.integers(0, 50))] = rng.integers(0, 4)
         reads.append(revcomp_codes(r) if rng.random() < 0.5 else r)
     codes = np.stack(reads)
-    batch = ReadBatch(codes=codes, lengths=np.full(128, 50, np.int32))
-    hosts = [CombinedEngine(comb, index, cfg, xa_tags=True,
+    return comb, index, ReadBatch(codes=codes,
+                                  lengths=np.full(128, 50, np.int32))
+
+
+COMBINED_CFG = AlignConfig(max_read_len=50, batch_size=64, kmer_size=8,
+                           max_seeds=4, max_occ=32, max_candidates=8,
+                           band_width=3, chrom_spacer=64)
+
+
+def test_combined_engine_on_card_equals_cpu(cuda):
+    """CombinedEngine with XA tags on genomic, exonic and junction reads:
+    to_host on the card equals the CPU engine's, XA strings included."""
+    from parasuite_tpu_torch.pipeline.combined import CombinedEngine
+
+    comb, index, batch = _combined_world()
+    hosts = [CombinedEngine(comb, index, COMBINED_CFG, xa_tags=True,
                             device=dev).align_to_host(batch)
              for dev in ("cpu", "cuda")]
     _hosts_equal(*hosts)
     assert any(len(hosts[0].cigars[i]) > 1 for i in range(128))
     assert hosts[0].xa[0] is not None
+
+
+@pytest.mark.parametrize("cap", [1.0, 0.02])
+def test_combined_projected_step_on_card_equals_cpu(cuda, cap):
+    """The projected combined step (device projection, compaction,
+    junction winners) on the card: its to_host equals the CPU engine's
+    and the unprojected step's, with the same counters; at cap 0.02 the
+    batch overflows and re-runs unprojected on both devices."""
+    from parasuite_tpu_torch.pipeline.combined import CombinedEngine
+
+    comb, index, batch = _combined_world()
+    cfg = COMBINED_CFG.replace(combined_wire_cap=cap,
+                               combined_wire_jun_cap=cap)
+    engines = [CombinedEngine(comb, index, cfg, device=dev)
+               for dev in ("cpu", "cuda")]
+    hosts = [e.to_host(batch, e.align_device_packed(batch.codes,
+                                                    batch.lengths))
+             for e in engines]
+    _hosts_equal(*hosts)
+    _hosts_equal(hosts[0], engines[1].to_host(
+        batch, engines[1].align_device(batch.codes, batch.lengths)))
+    counters = [(e.packed_batches, e.packed_entries, e.packed_junctions,
+                 e.packed_overflow) for e in engines]
+    assert counters[0] == counters[1]
+    assert counters[0][3] == (1 if cap < 1 else 0)
+    assert any(len(hosts[0].cigars[i]) > 1 for i in range(128))
 
 
 def test_wrappers_refuse_what_the_kernels_cannot_take(cuda, tiny_ref):

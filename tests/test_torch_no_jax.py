@@ -1,6 +1,8 @@
-"""The port never imports jax: whole index + twopass and combine + twopass +
-align --xa --rescue-kmer runs leave it out of sys.modules, and no source
-file of the port (or chip_smoke.py) imports it."""
+"""The port never imports jax: whole index + twopass, combine + twopass +
+align --xa --rescue-kmer, and simulate / benchmark / cluster / sort /
+convert plus a combined align on the projected step leave it out of
+sys.modules, and no source file of the port (or chip_smoke.py) imports
+it."""
 
 import os
 import re
@@ -99,6 +101,63 @@ def test_combine_twopass_xa_rescue_run_without_jax(tmp_path, tiny_ref):
                   if not line.startswith("@")] for sam in ("c.sam", "x.sam")}
     assert len(recs["c.sam"]) == len(recs["x.sam"]) == 40
     assert recs["c.sam"][0][5] == "25M400N25M"
+
+
+def test_host_tools_and_projected_combined_run_without_jax(tmp_path,
+                                                           tiny_ref):
+    """simulate (flat, --profile --learned-indels, on a combined index),
+    benchmark --device cpu, cluster on SAM and BAM, sort and convert, and a
+    combined align through the projected step (its counters in the JSON
+    line): no jax in sys.modules."""
+    from parasuite_tpu.io.fasta import write_fasta
+
+    write_fasta(tmp_path / "ref.fa",
+                {name: tiny_ref.seq[tiny_ref.starts[i]:tiny_ref.ends[i]]
+                 for i, name in enumerate(tiny_ref.names)})
+    (tmp_path / "exons.tsv").write_text(
+        "t1\tchrA\t+\t2000,2600\t2200,2800\n")
+    flags = ["--max-read-len", "50", "--kmer-size", "8", "--band-width", "3",
+             "--batch-size", "32"]
+    code = (
+        "import contextlib, io, json, sys\n"
+        "from parasuite_tpu_torch.cli import main\n"
+        f"flags = {flags!r}\n"
+        "def run(*argv):\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        assert main(list(argv)) == 0, argv\n"
+        "    return json.loads(buf.getvalue().strip().splitlines()[-1])\n"
+        "run('index', 'ref.fa', 'idx', *flags)\n"
+        "run('combine', 'ref.fa', 'exons.tsv', 'cidx', *flags)\n"
+        "run('simulate', 'idx', 's.fastq', '--n-reads', '96', *flags)\n"
+        "run('simulate', 'cidx', 'c.fastq', '--n-reads', '96', *flags)\n"
+        "run('twopass', 'idx', 's.fastq', 'tp.sam', '--device', 'cpu',"
+        " *flags)\n"
+        "run('simulate', 'idx', 'p.fastq', '--n-reads', '64', '--profile',"
+        " 'tp.sam.errorprofile', '--learned-indels', *flags)\n"
+        "run('align', 'idx', 's.fastq', 'al.bam', '--device', 'cpu', *flags)\n"
+        "b = run('benchmark', 'idx', '--n-reads', '64', '--device', 'cpu',"
+        " *flags)\n"
+        "assert b['n_correct'] > 50, b\n"
+        "for src, out in (('tp.sam', 'cs.tsv'), ('al.bam', 'cb.tsv')):\n"
+        "    run('cluster', 'idx', src, out, '--cluster-min-reads', '1',"
+        " *flags)\n"
+        "run('sort', 'al.bam', 'sorted.bam')\n"
+        "run('convert', 'sorted.bam', 'sorted.sam')\n"
+        "c = run('align', 'cidx', 'c.fastq', 'c.sam', '--device', 'cpu',"
+        " *flags)\n"
+        "assert c['packed_batches'] == 3 and c['packed_overflow'] == 0, c\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "print('no-jax-ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = str(REPO)
+    p = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert p.stdout.strip().splitlines()[-1] == "no-jax-ok"
+    recs = [line for line in (tmp_path / "sorted.sam").read_text()
+            .splitlines() if not line.startswith("@")]
+    assert len(recs) == 96
 
 
 def test_no_source_file_imports_jax():
