@@ -8,13 +8,20 @@ random reference, k = 12, 50 bp PAR-CLIP reads, bench.make_cfg()), in phases;
 each prints one line, and any failure raises (exit code != 0):
 
   1. environment: CUDA present, the package present, GPU name and power
-     limit, torch / CUDA / nvcc / Triton versions;
+     limit, torch / CUDA / nvcc / Triton versions; the port's own C++ host
+     library (parasuite_tpu_torch/native) built and loaded;
   2. build: both CUDA kernels compiled from parasuite_tpu_torch/csrc;
   3. world: reference, k-mer index (through the port's CLI) and 262,144
      reads with truth, written under .smoke/;
   4. kernels vs plain: on real stage inputs of 16,384 reads each kernel is
      array-equal to its plain PyTorch version (tolerance 0: integer
-     outputs); median times of both, and the kernels alone at 65,536 reads;
+     outputs); median times of both, and the kernels alone at 65,536 reads,
+     each beside its bound (select_bound, extend_bound: the larger of bytes
+     over the memory rate and operations over the int32 rate) — a kernel
+     faster than its bound is a miscount and fails; then the select kernel
+     against its plain version at every row width it is built for
+     (SELECT_CASES on select_case_rows: ties, all-I32MAX rows, one repeated
+     diagonal);
   5. pinned to the JAX package: `twopass --learned-gaps` through the port's
      CLI on the first 16,384 reads; the pass-1 SAM, .errorprofile and final
      SAM must have the SHA-256 digests the JAX package's CLI produced on the
@@ -57,8 +64,9 @@ each prints one line, and any failure raises (exit code != 0):
 Phases 7-9 and 11 run through the port's CLI with --device cuda and check
 the exact kernel launch counts of their runs; phases 10 and 12 launch none.
 
-Then one JSON line on the kernels (launches summed over phases 5-12), and
-as the last line
+Then one JSON line on the kernels (launches summed over phases 5-12), a
+check that neither jax nor the JAX package was imported, and as the last
+line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The worlds are pure functions of the seeds, so the digests can be
@@ -72,8 +80,7 @@ recomputed anywhere with the JAX package:
         --pg-cl smoke --batch-size 4096 FLAGS
     python -m parasuite_tpu.cli twopass W/idx W/all.fastq W/all.bam \\
         --learned-gaps --pg-cl smoke --batch-size 4096 FLAGS
-    python -c "from parasuite_tpu.io.bam import bam_to_sam; \\
-        bam_to_sam('W/all.bam', 'W/all_tp.sam')"
+    python -m parasuite_tpu.cli convert W/all.bam W/all_tp.sam
     FLAGS = --max-read-len 50 --kmer-size 12 --max-candidates 8 --max-occ 16
 
 Phases 7-9 (RFLAGS = FLAGS with --max-read-len 36):
@@ -85,8 +92,7 @@ Phases 7-9 (RFLAGS = FLAGS with --max-read-len 36):
         --xa --pg-cl smoke --batch-size 4096 --log W/xa/log FLAGS
     python -m parasuite_tpu.cli twopass W/idx W/rescue.fastq W/rescue.bam \\
         --learned-gaps --rescue-kmer 11 --pg-cl smoke --batch-size 16384 RFLAGS
-    python -c "from parasuite_tpu.io.bam import bam_to_sam; \\
-        bam_to_sam('W/rescue.bam', 'W/rescue_tp.sam')"
+    python -m parasuite_tpu.cli convert W/rescue.bam W/rescue_tp.sam
     python -m parasuite_tpu.cli combine W/comb/ref.fa W/comb/exons.tsv \\
         W/comb/cidx FLAGS
     python -m parasuite_tpu.cli twopass W/comb/cidx W/comb/all.fastq \\
@@ -133,6 +139,7 @@ import json
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -260,6 +267,11 @@ TOOLS_PINNED = {
 }
 PACKED_KEYS = ("packed_batches", "packed_entries", "packed_junctions",
                "packed_overflow")
+# published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
+# and the int32 add/min/max rate — 64 lanes per SM per clock, a quarter of
+# the 67 TFLOP/s float32 figure (128 lanes, 2 flop per FMA)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
 
 
 def sha256(path) -> str:
@@ -317,8 +329,8 @@ def draw_reads(chrom: np.ndarray, n: int, L: int, seed: int,
 def write_world(out_dir, n_reads: int = N_READS) -> dict:
     """Reference FASTA, all-reads and pinned FASTQs and the truth (.npz):
     bench_chrom() and draw_reads(seed 2) at READ_LEN."""
-    from parasuite_tpu.io.fasta import write_fasta
-    from parasuite_tpu.io.fastq import write_fastq
+    from parasuite_tpu_torch.io.fasta import write_fasta
+    from parasuite_tpu_torch.io.fastq import write_fastq
 
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
@@ -339,7 +351,7 @@ def write_rescue_reads(out_dir) -> None:
     """rescue.fastq: N_MODE_READS reads of RESCUE_LEN bp on the bench
     reference, draw_reads(seed 3) at 3% substitutions, so the primary
     k = 12 pass leaves reads unmapped."""
-    from parasuite_tpu.io.fastq import write_fastq
+    from parasuite_tpu_torch.io.fastq import write_fastq
 
     reads, _, _ = draw_reads(bench_chrom(), N_MODE_READS, RESCUE_LEN, 3,
                              sub_rate=0.03)
@@ -353,8 +365,8 @@ def write_xa_world(out_dir) -> None:
     for hg19 chr22 (a ~10.3 Mbp leading N block, interspersed repeat
     families, satellite, segmental duplications); reads.fastq: N_MODE_READS
     reads of READ_LEN bp, draw_reads(seed 4) over windows without N."""
-    from parasuite_tpu.io.fasta import write_fasta
-    from parasuite_tpu.io.fastq import write_fastq
+    from parasuite_tpu_torch.io.fasta import write_fasta
+    from parasuite_tpu_torch.io.fastq import write_fastq
     from parasuite_tpu_torch.sim.genome import chr22_like
 
     out = Path(out_dir)
@@ -374,9 +386,9 @@ def write_combined_world(out_dir) -> int:
     genomic and half spliced-transcript (many junction-spanning), T->C at
     12% of T, reads straddling a spacer dropped, shuffled -> all.fastq, and
     the first N_PIN of them -> xa.fastq. Returns the number of reads."""
-    from parasuite_tpu.config import AlignConfig
-    from parasuite_tpu.io.fasta import write_fasta
-    from parasuite_tpu.io.fastq import write_fastq
+    from parasuite_tpu_torch.config import AlignConfig
+    from parasuite_tpu_torch.io.fasta import write_fasta
+    from parasuite_tpu_torch.io.fastq import write_fastq
     from parasuite_tpu_torch.pipeline.combined import (CombinedReference,
                                                        Transcript)
 
@@ -451,6 +463,50 @@ def accuracy(sam_path, truth: dict) -> dict:
             "precision": float(correct.sum() / max(int(mapped.sum()), 1))}
 
 
+def _bound(n_bytes: int, n_ops: int) -> dict:
+    """The least time an H100 could take: bytes over the memory rate or
+    int32 operations over their rate, whichever is larger (ms)."""
+    by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * n_ops / INT32_OPS_PER_S
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes": int(n_bytes), "bound_ops": int(n_ops)}
+
+
+def select_bound(rows: int, n: int, C: int) -> dict:
+    """Bytes: the int32 [rows, n] diagonals in, int32 + bool [rows, C] out.
+    Operations per row, whatever the algorithm: a comparison sort of the
+    row's n entries takes n * ceil(log2 n) compares, run starts and votes
+    are 2 per entry, and each of the C results is one pick."""
+    compares = n * max(1, int(n - 1).bit_length())
+    return _bound(rows * (4 * n + 5 * C), rows * (compares + 2 * n + C))
+
+
+def extend_bound(lengths: np.ndarray, C: int, L: int, W: int, G: int) -> dict:
+    """Bytes: oriented reads int32 [2B, L], lengths, candidates int32
+    [2B, C], the reference windows (L + 2W bytes a pair, at most the whole
+    reference), both score tables, four int32 [2B, C] outputs. Operations:
+    10 add/max per cell of the M / Ix / Iy / ungapped recurrence, over
+    2W + 1 cells a row and as many rows as the read is long."""
+    B = int(lengths.shape[0])
+    pairs = 2 * B * C
+    cells = 2 * C * (2 * W + 1) * int(np.minimum(lengths, L).sum())
+    n_bytes = (2 * B * L * 4 + B * 4 + pairs * 4
+               + min(G, pairs * (L + 2 * W)) + 2 * L * 25 * 4 + 4 * pairs * 4)
+    return _bound(n_bytes, 10 * cells)
+
+
+def _against_bound(name: str, ms: float, bound: dict,
+                   suffix: str = "") -> dict:
+    """The bound's fields and the share of it the kernel reached, keys
+    suffixed; a kernel faster than its bound is a miscount."""
+    share = bound["bound_ms"] / ms
+    if share > 1.0:
+        raise AssertionError(f"{name}: {ms} ms is under its bound {bound}")
+    return {**{k + suffix: v for k, v in bound.items()},
+            "share_of_bound" + suffix: share}
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -484,8 +540,24 @@ def environment() -> str:
     print(gpu, flush=True)
     phase("environment", gpu=gpu, torch=torch.__version__,
           cuda=torch.version.cuda, nvcc=nvcc[-1] if nvcc else "",
-          triton=triton_version, python=sys.version.split()[0])
+          triton=triton_version, python=sys.version.split()[0],
+          native=native_library())
     return gpu
+
+
+def native_library() -> bool:
+    """Build (at first use) and load the port's own C++ host library; the
+    compiler's message and a failure if it does not load."""
+    from parasuite_tpu_torch import native
+
+    if native.available():
+        return True
+    make = subprocess.run(
+        ["make", "-B", "-C", str(Path(native.__file__).parent)],
+        capture_output=True, text=True, timeout=300)
+    raise AssertionError(f"parasuite_tpu_torch/native did not load; make "
+                         f"exit {make.returncode}:\n{make.stdout[-2000:]}"
+                         f"{make.stderr[-2000:]}")
 
 
 def build() -> None:
@@ -494,9 +566,19 @@ def build() -> None:
     t0 = time.perf_counter()
     _build.build()
     _build.load()
+    seconds = round(time.perf_counter() - t0, 3)
     regs = [line.strip() for line in _build.build_log.splitlines()
             if "registers" in line]
-    phase("build", seconds=round(time.perf_counter() - t0, 3),
+    # the same sources through one nvcc call, for the cost of not building
+    # them in parallel (the library it writes is thrown away)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
+        subprocess.run([_build.nvcc_path(), *_build.FLAGS, "-shared", "-o",
+                        str(Path(tmp) / "one.so"),
+                        *map(str, _build._sources())], check=True,
+                       capture_output=True, timeout=900)
+    phase("build", seconds=seconds,
+          one_nvcc_seconds=round(time.perf_counter() - t0, 3),
           library=str(_build.LIB.relative_to(REPO)), ptxas=regs)
 
 
@@ -534,11 +616,11 @@ def _median_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
-def kernels_vs_plain(engine) -> list[dict]:
+def kernels_vs_plain(engine, gpu: str) -> list[dict]:
     """Each kernel against its plain version on real stage inputs."""
     import torch
 
-    from parasuite_tpu.io.fastq import read_fastq
+    from parasuite_tpu_torch.io.fastq import read_fastq
     from parasuite_tpu_torch.ops import aligner, cuda_extend, cuda_seed
 
     cfg, didx, sprof, dev = engine.cfg, engine.didx, engine.sprof, \
@@ -580,6 +662,16 @@ def kernels_vs_plain(engine) -> list[dict]:
                "extend_candidates": ("extend_candidates.cu",
                                      "parasuite_tpu/ops/pallas_extend.py:56")}
     d16 = (oriented, lens, diags)
+    G = int(didx.ref_seq.shape[0])
+
+    def bounds(n_reads, n_diag):
+        return {"select_candidates": select_bound(
+                    2 * n_reads, n_diag, cfg.max_candidates),
+                "extend_candidates": extend_bound(
+                    batch.lengths[:n_reads], cfg.max_candidates,
+                    cfg.max_read_len, cfg.band_width, G)}
+
+    bound16 = bounds(N_PIN, int(diags.shape[1]))
     for name, pairs in checks.items():
         err = 0
         for k, p in pairs:
@@ -591,23 +683,65 @@ def kernels_vs_plain(engine) -> list[dict]:
             raise AssertionError(f"{name}: kernel differs from plain, max "
                                  f"abs err {err}")
         kern, plain = timed[name]
+        ms = _median_ms(lambda: kern(d16))
+        # library_ms: no single PyTorch call computes either function
+        # (select is two sorts, a cummin and elementwise ops; extend is a
+        # recurrence over the read)
         out.append({"name": name, "route": "cuda",
                     "source": f"parasuite_tpu_torch/csrc/{sources[name][0]}",
                     "replaces": sources[name][1], "launches": 0,
                     "max_abs_err": err, "reads": int(lens.shape[0]),
-                    "ms": _median_ms(lambda: kern(d16)),
-                    "plain_ms": _median_ms(lambda: plain(d16))})
+                    "diagonals_per_row": int(diags.shape[1]), "ms": ms,
+                    "plain_ms": _median_ms(lambda: plain(d16)),
+                    **_against_bound(name, ms, bound16[name]),
+                    "library_ms": None})
     # the kernels alone at the main path's batch of 65,536 reads
     oriented, lens, diags = stage_inputs(BATCH)
     cand, _ = cuda_seed.select_candidates(diags, cfg)
-    out[0]["ms_65536"] = _median_ms(
-        lambda: cuda_seed.select_candidates(diags, cfg))
-    out[1]["ms_65536"] = _median_ms(
-        lambda: cuda_extend.extend_candidates(oriented, lens, cand, didx,
-                                              sprof, cfg))
+    ms_batch = {
+        "select_candidates": _median_ms(
+            lambda: cuda_seed.select_candidates(diags, cfg)),
+        "extend_candidates": _median_ms(
+            lambda: cuda_extend.extend_candidates(oriented, lens, cand, didx,
+                                                  sprof, cfg))}
+    bound_batch = bounds(BATCH, int(diags.shape[1]))
     for k in out:
-        phase("kernel", **k)
+        k["ms_65536"] = ms_batch[k["name"]]
+        k.update(_against_bound(k["name"], k["ms_65536"],
+                                bound_batch[k["name"]], "_65536"))
+        phase("kernel", **k, gpu=gpu)
+    select_widths_equal_plain(dev, gpu)
     return out
+
+
+def select_widths_equal_plain(dev, gpu: str) -> None:
+    """The select kernel against its plain version at every row width it is
+    built for (SELECT_CASES), on select_case_rows; its time there too."""
+    import torch
+
+    from parasuite_tpu_torch.config import AlignConfig
+    from parasuite_tpu_torch.ops import cuda_seed
+    from parasuite_tpu_torch.testing import SELECT_CASES, select_case_rows
+
+    widths = []
+    for n, C in SELECT_CASES:
+        cfg = AlignConfig(max_candidates=C)
+        d = torch.from_numpy(select_case_rows(n)).to(dev)
+        got = cuda_seed.select_candidates(d, cfg)
+        want = cuda_seed.select_candidates_plain(d, cfg)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                bad = (g != w).any(dim=1).nonzero().flatten().tolist()
+                raise AssertionError(f"select_candidates differs from plain "
+                                     f"at n={n}, C={C}: rows {bad[:8]}")
+        # timed on 131,072 rows (the main path's row count) of these rows
+        big = d.repeat(-(-2 * BATCH // d.shape[0]), 1)[:2 * BATCH].contiguous()
+        ms = _median_ms(lambda: cuda_seed.select_candidates(big, cfg))
+        widths.append({"n": n, "C": C, "max_abs_err": 0, "ms_131072_rows": ms,
+                       **_against_bound("select_candidates", ms,
+                                        select_bound(2 * BATCH, n, C))})
+    phase("select_widths", cases=widths, gpu=gpu)
 
 
 def _cli_json(argv) -> dict:
@@ -661,7 +795,7 @@ def pinned_twopass() -> None:
 
 
 def at_scale(truth: dict, gpu: str) -> dict:
-    from parasuite_tpu.io.bam import bam_to_sam
+    from parasuite_tpu_torch.io.bam import bam_to_sam
 
     _reset_counters()
     al = _cli_json(["align", str(WORK / "idx"), str(WORK / "all.fastq"),
@@ -701,7 +835,7 @@ def device_rate(engine, gpu: str) -> None:
     device (upload included, result fetch excluded), warm-up excluded."""
     import torch
 
-    from parasuite_tpu.io.fastq import read_fastq
+    from parasuite_tpu_torch.io.fastq import read_fastq
 
     batch = read_fastq(WORK / "all.fastq", READ_LEN)
     chunks = [(batch.codes[i:i + BATCH], batch.lengths[i:i + BATCH])
@@ -833,15 +967,29 @@ def _kernels_equal_plain(didx, sprof, cfg, codes, lengths) -> dict:
     if any(errs.values()):
         raise AssertionError(f"kernels differ from plain at shape "
                              f"{tuple(d.shape)}: {errs}")
-    return {**errs, "diagonals_per_row": int(d.shape[1]),
-            "rows": int(d.shape[0])}
+    G = int(didx.ref_seq.shape[0])
+    ms = {"select_candidates": _median_ms(
+              lambda: cuda_seed.select_candidates(d, cfg)),
+          "extend_candidates": _median_ms(
+              lambda: cuda_extend.extend_candidates(o, ln, cand, didx, sprof,
+                                                    cfg))}
+    bound = {"select_candidates": select_bound(
+                 int(d.shape[0]), int(d.shape[1]), cfg.max_candidates),
+             "extend_candidates": extend_bound(
+                 lengths, cfg.max_candidates, cfg.max_read_len,
+                 cfg.band_width, G)}
+    return {"max_abs_err": errs, "diagonals_per_row": int(d.shape[1]),
+            "rows": int(d.shape[0]),
+            **{name: {"ms": ms[name],
+                      **_against_bound(name, ms[name], bound[name])}
+               for name in ms}}
 
 
 def rescue_phase(gpu: str) -> dict:
-    from parasuite_tpu.config import AlignConfig
-    from parasuite_tpu.index import KmerIndex, PackedReference
-    from parasuite_tpu.io.bam import bam_to_sam
-    from parasuite_tpu.io.fastq import read_fastq
+    from parasuite_tpu_torch.config import AlignConfig
+    from parasuite_tpu_torch.index import KmerIndex, PackedReference
+    from parasuite_tpu_torch.io.bam import bam_to_sam
+    from parasuite_tpu_torch.io.fastq import read_fastq
     from parasuite_tpu_torch.pipeline.align import AlignerEngine
 
     t0 = time.perf_counter()
@@ -896,8 +1044,8 @@ def _unprojected_align(comb, out) -> dict:
     candidate table to the host, every transcript row in the slow path):
     streaming_align with the CLI's engine and supports_packed turned off.
     -> the CLI's reads and reads_per_second."""
-    from parasuite_tpu.config import AlignConfig
-    from parasuite_tpu.index import KmerIndex
+    from parasuite_tpu_torch.config import AlignConfig
+    from parasuite_tpu_torch.index import KmerIndex
     from parasuite_tpu_torch.pipeline.combined import (CombinedEngine,
                                                        CombinedReference)
     from parasuite_tpu_torch.pipeline.stream import streaming_align
@@ -1004,9 +1152,9 @@ def combined_host_split(gpu: str) -> None:
     the projected and on the unprojected step."""
     import torch
 
-    from parasuite_tpu.config import AlignConfig
-    from parasuite_tpu.index import KmerIndex, PackedReference
-    from parasuite_tpu.io.fastq import read_fastq
+    from parasuite_tpu_torch.config import AlignConfig
+    from parasuite_tpu_torch.index import KmerIndex, PackedReference
+    from parasuite_tpu_torch.io.fastq import read_fastq
     from parasuite_tpu_torch.pipeline.align import AlignerEngine
     from parasuite_tpu_torch.pipeline.combined import (CombinedEngine,
                                                        CombinedReference)
@@ -1122,15 +1270,15 @@ def main() -> int:
 
     import torch
 
-    from parasuite_tpu.config import AlignConfig
-    from parasuite_tpu.index import KmerIndex, PackedReference
+    from parasuite_tpu_torch.config import AlignConfig
+    from parasuite_tpu_torch.index import KmerIndex, PackedReference
     from parasuite_tpu_torch.pipeline.align import AlignerEngine
 
     cfg = AlignConfig(max_read_len=READ_LEN, kmer_size=12, batch_size=BATCH,
                       max_candidates=8, max_occ=16)   # bench.make_cfg()
     engine = AlignerEngine(PackedReference.load(WORK / "idx"),
                            KmerIndex.load(WORK / "idx"), cfg, device="cuda")
-    kernels = kernels_vs_plain(engine)
+    kernels = kernels_vs_plain(engine, gpu)
     runs = [pinned_twopass(), at_scale(truth, gpu)]
     device_rate(engine, gpu)
     runs += [xa_phase(gpu), rescue_phase(gpu), combined_phase(gpu)]
@@ -1139,6 +1287,12 @@ def main() -> int:
     tools_phase(gpu)
     for k in kernels:
         k["launches"] = sum(r[k["name"]] for r in runs)
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "parasuite_tpu"))
+    if foreign:
+        raise AssertionError(f"the run imported {foreign[:5]}: the port "
+                             f"stands on its own")
+    print(gpu, flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,9 @@ missing is an error, and the CLI never moves to the CPU on its own. align
 and twopass take --xa, --rescue-kmer and combined genome+transcriptome
 indexes (an index prefix with a .combined.json beside it).
 
-index, sort and convert run parasuite_tpu.cli's own functions: they are
-numpy and the native host library, no framework. simulate uses the port's
-simulator (sim/generate.py, the same reads bit for bit); cluster its copies
+index, sort and convert are numpy and the port's native host library
+(native/), no framework. simulate uses the port's simulator
+(sim/generate.py, the same reads bit for bit); cluster its copies
 of the cluster caller. Not ported yet (the next slice, ROADMAP Queue 1):
 benchmark --scaling, dist-align and merge-shards.
 
@@ -36,13 +36,84 @@ from pathlib import Path
 
 import numpy as np
 
-from parasuite_tpu.cli import (_add_cfg_flags, _cfg_from_args, cmd_convert,
-                               cmd_index, cmd_sort)
+
+def _cfg_from_args(args) -> "AlignConfig":
+    from parasuite_tpu_torch.config import AlignConfig
+
+    kw = {}
+    for f in ("max_read_len", "kmer_size", "band_width", "max_candidates",
+              "max_occ", "max_seeds", "seed_stride", "batch_size",
+              "cluster_min_reads", "seed", "rescue_kmer"):
+        v = getattr(args, f, None)
+        if v is not None:
+            kw[f] = v
+    return AlignConfig(**kw)
+
+
+def _add_cfg_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--max-read-len", dest="max_read_len", type=int)
+    p.add_argument("--kmer-size", dest="kmer_size", type=int)
+    p.add_argument("--band-width", dest="band_width", type=int)
+    p.add_argument("--max-candidates", dest="max_candidates", type=int)
+    p.add_argument("--max-occ", dest="max_occ", type=int)
+    p.add_argument("--max-seeds", dest="max_seeds", type=int)
+    p.add_argument("--seed-stride", dest="seed_stride", type=int,
+                   help="offset step between seeds (< kmer-size = "
+                        "overlapping seeds, higher sensitivity; 0 = "
+                        "non-overlapping, the default)")
+    p.add_argument("--batch-size", dest="batch_size", type=int)
+    p.add_argument("--rescue-kmer", dest="rescue_kmer", type=int,
+                   help="two-tier seeding: retry unmapped reads with this "
+                        "smaller seed k in a second device pass (36-40bp "
+                        "libraries; 0 = off)")
+    p.add_argument("--seed", type=int)
+
+
+def cmd_index(args) -> int:
+    from parasuite_tpu_torch.index import KmerIndex, PackedReference
+    from parasuite_tpu_torch.io.fasta import read_fasta
+
+    cfg = _cfg_from_args(args)
+    seqs = read_fasta(args.fasta)
+    ref = PackedReference.from_dict(seqs, spacer=cfg.chrom_spacer)
+    idx = KmerIndex.build(ref.seq, cfg.kmer_size)
+    ref.save(args.out_prefix)
+    idx.save(args.out_prefix)
+    Path(str(args.out_prefix) + ".config.json").write_text(cfg.to_json())
+    print(json.dumps({"tool": "index", "chroms": len(ref.names),
+                      "packed_len": ref.total_len, "kmers": idx.n_kmers}))
+    return 0
+
+
+def cmd_sort(args) -> int:
+    from parasuite_tpu_torch.io.bam import coordinate_sort
+
+    n = coordinate_sort(args.infile, args.out, min_mapq=args.min_mapq,
+                        mapped_only=args.mapped_only,
+                        max_in_memory=args.max_in_memory)
+    print(json.dumps({"tool": "sort", "records": n, "out": str(args.out)}))
+    return 0
+
+
+def cmd_convert(args) -> int:
+    from parasuite_tpu_torch.io.bam import bam_to_sam, sam_to_bam
+
+    src, dst = str(args.infile), str(args.out)
+    if src.endswith(".bam") and not dst.endswith(".bam"):
+        n = bam_to_sam(src, dst)
+    elif not src.endswith(".bam") and dst.endswith(".bam"):
+        n = sam_to_bam(src, dst)
+    else:
+        raise SystemExit("convert: exactly one of the two paths must end "
+                         "in .bam")
+    print(json.dumps({"tool": "convert", "records": n, "out": dst}))
+    return 0
 
 
 def _load_engine(args, cfg):
-    from parasuite_tpu.errormodel.infer import ErrorProfile, counts_to_profile
-    from parasuite_tpu.index import KmerIndex, PackedReference
+    from parasuite_tpu_torch.errormodel.infer import (ErrorProfile,
+                                                      counts_to_profile)
+    from parasuite_tpu_torch.index import KmerIndex, PackedReference
     from parasuite_tpu_torch.pipeline.align import AlignerEngine
 
     s = None
@@ -80,7 +151,7 @@ def _command_line(args) -> str:
 
 
 def cmd_align(args) -> int:
-    from parasuite_tpu.utils.runlog import RunLog
+    from parasuite_tpu_torch.utils.runlog import RunLog
     from parasuite_tpu_torch.pipeline.stream import streaming_align
 
     cfg = _cfg_from_args(args)
@@ -101,8 +172,9 @@ def cmd_align(args) -> int:
 
 
 def cmd_twopass(args) -> int:
-    from parasuite_tpu.errormodel.infer import ErrorProfile, counts_to_profile
-    from parasuite_tpu.utils.runlog import RunLog
+    from parasuite_tpu_torch.errormodel.infer import (ErrorProfile,
+                                                      counts_to_profile)
+    from parasuite_tpu_torch.utils.runlog import RunLog
     from parasuite_tpu_torch.pipeline.stream import streaming_align
 
     cfg = _cfg_from_args(args)
@@ -148,9 +220,9 @@ def cmd_twopass(args) -> int:
 
 
 def cmd_simulate(args) -> int:
-    from parasuite_tpu.errormodel.infer import ErrorProfile
-    from parasuite_tpu.index import PackedReference
-    from parasuite_tpu.io.fastq import write_fastq
+    from parasuite_tpu_torch.errormodel.infer import ErrorProfile
+    from parasuite_tpu_torch.index import PackedReference
+    from parasuite_tpu_torch.io.fastq import write_fastq
     from parasuite_tpu_torch.sim.generate import (simulate_quality,
                                                   simulate_reads)
 
@@ -229,8 +301,8 @@ def cluster_columns_python(sam_path, ref):
     """Per-record SAM ingestion for cluster calling (fallback without the
     native library; a copy of parasuite_tpu.cli.cluster_columns_python,
     whose module-level imports pull in jax). -> (pos, span, tc)."""
-    from parasuite_tpu.io.sam import cigar_ref_span, read_sam
-    from parasuite_tpu.utils.dna import encode_seq
+    from parasuite_tpu_torch.io.sam import cigar_ref_span, read_sam
+    from parasuite_tpu_torch.utils.dna import encode_seq
     from parasuite_tpu_torch.pipeline.clusters import tc_count_from_cigar
 
     name_to_idx = {n: i for i, n in enumerate(ref.names)}
@@ -256,8 +328,8 @@ def cluster_columns_python(sam_path, ref):
 
 
 def cmd_cluster(args) -> int:
-    from parasuite_tpu import native
-    from parasuite_tpu.index import PackedReference
+    from parasuite_tpu_torch import native
+    from parasuite_tpu_torch.index import PackedReference
     from parasuite_tpu_torch.pipeline.clusters import (call_clusters,
                                                        write_clusters)
 
@@ -276,7 +348,7 @@ def cmd_cluster(args) -> int:
         # fallback: decode to a temp SAM in a writable dir, always cleaned
         import tempfile
 
-        from parasuite_tpu.io.bam import bam_to_sam
+        from parasuite_tpu_torch.io.bam import bam_to_sam
 
         with tempfile.NamedTemporaryFile(suffix=".sam", delete=False) as tf:
             tmp = tf.name

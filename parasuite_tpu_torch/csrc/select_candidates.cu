@@ -1,111 +1,239 @@
-// Candidate selection, one warp per oriented read.
+// Candidate selection, one warp per oriented read, the row in registers.
 //
-// Replaces parasuite_tpu/ops/pallas_seed.py::_select_kernel. Contract:
+// Replaces parasuite_tpu/ops/pallas_seed.py::_select_kernel (line 40; launched
+// by select_candidates_pallas, pl.pallas_call at line 103). Contract:
 // parasuite_tpu/ops/aligner.py select_candidates — top C unique diagonals
 // per row by (votes desc, diag asc); exhausted slots are (I32MAX, false).
 //
-// Per warp: the row is copied into shared memory padded with I32MAX to
-// n_pad (a power of two >= 32), bitonic-sorted in place, and every sorted
-// entry gets the key (negv, diag) packed into one int64 — negv = -run length
-// at the first entry of a run of a valid diagonal, else (1, I32MAX), exactly
-// the reference's sort keys. C rounds of a warp-shuffle min over the keys
-// then emit the winners in order, each knocked out after its round; valid
-// keys are unique (one per distinct diagonal), so one knock-out per round.
+// What bounds it on an H100: the function itself is bound by bytes. A row is
+// n * 4 bytes in and 5 * C bytes out (131,072 rows of 112 diagonals: 64 MB,
+// ~0.02 ms at 3.35 TB/s); a comparison sort of the row needs about
+// n * log2(n) compares, less time than the bytes at every width here. What
+// this kernel spends above that bound is instructions: its sorting network
+// takes n_pad/2 * log2(n_pad) * (log2(n_pad)+1)/2 compare-exchanges (1,792 at
+// n_pad = 128), each a min and a max on the int32 pipe (64 lanes per SM per
+// clock), and the strides that cross lanes go through the shuffle unit
+// (32 lanes per SM per clock).
+//
+// What the design does to keep those instructions few and cheap:
+//   * The row never touches shared memory. Each lane holds E = n_pad / 32
+//     entries in registers (a template parameter, E in {1, 2, 4, 8, 16, 32});
+//     entry r of a lane sits at sorted position lane * E + r. The row is
+//     loaded striped across the warp with 128-bit loads (order does not
+//     matter before a sort) and padded with I32MAX.
+//   * The bitonic network is written so that every compare-exchange is
+//     ascending: a merge of size k first pairs p with p ^ (k - 1), then with
+//     p ^ j for j = k/4 .. 1. Pairs inside a lane are a min and a max between
+//     two registers; pairs across lanes are one __shfl_xor_sync per entry.
+//     Every loop is unrolled, so register indices, strides and directions
+//     are constants: no division, no barrier, no dynamic indexing.
+//   * Votes need no walk: a run starts where an entry differs from its
+//     predecessor (the previous lane's last entry by __shfl_up_sync), and
+//     its length is the next run start minus its own position — a suffix
+//     minimum of run-start positions inside the lane and then over lanes
+//     (5 shuffle steps), the formula of the plain version.
+//   * The top C need no scan of the row and no 64-bit key. Entries are in
+//     diagonal order inside a lane and over lanes, so the winner of a round
+//     is the smallest -votes (one __reduce_min_sync over each lane's own
+//     minimum), in the lowest lane that holds it (__ballot_sync + __ffs), at
+//     that lane's lowest register; only that lane rescans its E registers.
+//     Lane c keeps result c, so a row's results leave in one store per
+//     output array.
+//
+// ptxas -v (nvcc 12.9, sm_90a): 28 / 30 / 32 / 37 / 55 / 80 registers at
+// E = 1 .. 32, no stack frame below E = 32 and one 8-byte spill there.
 
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int32_t kI32Max = 0x7fffffff;
-constexpr int kWarps = 4;  // warps (rows) per block
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 8;  // warps (rows) per block
 
-__device__ __forceinline__ long long pack_key(int32_t negv, int32_t diag) {
-  // signed order of (negv, diag): the low word is diag with its sign bit
-  // flipped, so it orders as unsigned exactly like diag does as signed
-  return (long long)negv * 4294967296LL +
-         (long long)(uint32_t)((uint32_t)diag ^ 0x80000000u);
+__host__ __device__ constexpr int ilog2(int x) {
+  return x <= 1 ? 0 : 1 + ilog2(x >> 1);
 }
 
-__global__ void select_kernel(const int32_t* __restrict__ diags, int rows,
-                              int n, int n_pad, int C,
-                              int32_t* __restrict__ cand,
-                              uint8_t* __restrict__ valid) {
-  extern __shared__ unsigned char smem[];
-  const int warp = threadIdx.x >> 5;
+__device__ __forceinline__ void order(int32_t& a, int32_t& b) {
+  const int32_t lo = min(a, b), hi = max(a, b);
+  a = lo;
+  b = hi;
+}
+
+template <int E>
+__global__ void __launch_bounds__(kWarps * 32)
+    select_kernel(const int32_t* __restrict__ diags, int rows, int n, int C,
+                  int32_t* __restrict__ cand, uint8_t* __restrict__ valid) {
+  constexpr int NP = 32 * E;
+  constexpr int LOG_E = ilog2(E);
+  constexpr int LOG_NP = 5 + LOG_E;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + warp;
-  // per-warp buffers: n_pad int64 keys, then n_pad int32 diagonals
-  long long* keys = reinterpret_cast<long long*>(smem) + (size_t)warp * n_pad;
-  int32_t* d = reinterpret_cast<int32_t*>(
-                   reinterpret_cast<long long*>(smem) + (size_t)kWarps * n_pad) +
-               (size_t)warp * n_pad;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;  // whole warp exits together
 
   const int32_t* src = diags + (size_t)row * n;
-  for (int k = lane; k < n_pad; k += 32) d[k] = k < n ? src[k] : kI32Max;
-  __syncwarp();
-
-  // bitonic sort, ascending
-  for (int size = 2; size <= n_pad; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = lane; t < (n_pad >> 1); t += 32) {
-        const int i = 2 * stride * (t / stride) + (t % stride);
-        const int j = i + stride;
-        const bool up = (i & size) == 0;
-        const int32_t a = d[i], b = d[j];
-        if ((a > b) == up) {
-          d[i] = b;
-          d[j] = a;
-        }
+  int32_t v[E];
+  bool loaded = false;
+  if constexpr (E >= 4) {
+    if ((n & 3) == 0) {  // rows start on 16-byte boundaries
+#pragma unroll
+      for (int g = 0; g < E / 4; ++g) {
+        const int q = (g * 32 + lane) * 4;
+        int4 x = make_int4(kI32Max, kI32Max, kI32Max, kI32Max);
+        if (q < n) x = __ldg(reinterpret_cast<const int4*>(src + q));
+        v[4 * g] = x.x;
+        v[4 * g + 1] = x.y;
+        v[4 * g + 2] = x.z;
+        v[4 * g + 3] = x.w;
       }
-      __syncwarp();
+      loaded = true;
+    }
+  }
+  if (!loaded) {
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      const int q = r * 32 + lane;
+      v[r] = q < n ? __ldg(src + q) : kI32Max;
     }
   }
 
-  // keys: run start of a valid diagonal -> (-run length, diag)
-  for (int k = lane; k < n_pad; k += 32) {
-    const int32_t v = d[k];
-    const bool first = (k == 0) || (d[k - 1] != v);
-    long long key = pack_key(1, kI32Max);
-    if (first && v != kI32Max) {
-      int e = k + 1;
-      while (e < n_pad && d[e] == v) ++e;
-      key = pack_key(k - e, v);
+  // bitonic sort, every compare-exchange ascending; position = lane * E + r
+#pragma unroll
+  for (int lk = 1; lk <= LOG_NP; ++lk) {
+    // merge of size k = 2^lk: position p against p ^ (k - 1) ...
+    if (lk <= LOG_E) {
+      const int k = 1 << lk;
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        const int q = r ^ (k - 1);
+        if (q > r) order(v[r], v[q]);
+      }
+    } else {
+      const int lanes = 1 << (lk - LOG_E);  // lanes in one merge
+      const bool lower = (lane & (lanes >> 1)) == 0;
+      int32_t o[E];
+#pragma unroll
+      for (int r = 0; r < E; ++r)
+        o[r] = __shfl_xor_sync(kFull, v[E - 1 - r], lanes - 1);
+#pragma unroll
+      for (int r = 0; r < E; ++r)
+        v[r] = lower ? min(v[r], o[r]) : max(v[r], o[r]);
     }
-    keys[k] = key;
+    // ... then against p ^ j for j = k/4 .. 1
+#pragma unroll
+    for (int lj = lk - 2; lj >= 0; --lj) {
+      if (lj >= LOG_E) {
+        const int lm = 1 << (lj - LOG_E);
+        const bool lower = (lane & lm) == 0;
+#pragma unroll
+        for (int r = 0; r < E; ++r) {
+          const int32_t o = __shfl_xor_sync(kFull, v[r], lm);
+          v[r] = lower ? min(v[r], o) : max(v[r], o);
+        }
+      } else {
+        const int j = 1 << lj;
+#pragma unroll
+        for (int r = 0; r < E; ++r)
+          if ((r & j) == 0) order(v[r], v[r | j]);
+      }
+    }
   }
-  __syncwarp();
+
+  // run starts; fidx = own position at a run start, else NP
+  const int p0 = lane * E;
+  const int32_t before = __shfl_up_sync(kFull, v[E - 1], 1);
+  int32_t fidx[E];
+  fidx[0] = (lane == 0 || v[0] != before) ? p0 : NP;
+#pragma unroll
+  for (int r = 1; r < E; ++r) fidx[r] = v[r] != v[r - 1] ? p0 + r : NP;
+  int32_t lane_first = fidx[0];
+#pragma unroll
+  for (int r = 1; r < E; ++r) lane_first = min(lane_first, fidx[r]);
+  // next run start after this lane: suffix minimum over the lanes above
+  int32_t suffix = lane_first;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int32_t t = __shfl_down_sync(kFull, suffix, off);
+    if (lane + off < 32) suffix = min(suffix, t);
+  }
+  int32_t next_first = __shfl_down_sync(kFull, suffix, 1);
+  if (lane == 31) next_first = NP;
+  // negv = -votes at the run start of a valid diagonal, else 1 (as the
+  // reference's sort key); walk the lane's entries from the top
+  int32_t negv[E];
+#pragma unroll
+  for (int r = E - 1; r >= 0; --r) {
+    const bool first = fidx[r] != NP;
+    negv[r] = (first && v[r] != kI32Max) ? (p0 + r) - next_first : 1;
+    next_first = min(next_first, fidx[r]);
+  }
+
+  // the lane's best: smallest negv, at its lowest register (smallest diag)
+  int32_t bn = 1, bd = kI32Max;
+#pragma unroll
+  for (int r = 0; r < E; ++r)
+    if (negv[r] < bn) {
+      bn = negv[r];
+      bd = v[r];
+    }
 
   int32_t* out_c = cand + (size_t)row * C;
   uint8_t* out_v = valid + (size_t)row * C;
-  bool exhausted = false;
+  int32_t my_c = kI32Max;
+  uint8_t my_v = 0;
+  bool exhausted = false;  // warp-uniform
   for (int c = 0; c < C; ++c) {
+    int32_t win_d = kI32Max;
+    uint8_t win_v = 0;
     if (!exhausted) {
-      long long best = LLONG_MAX;
-      for (int k = lane; k < n_pad; k += 32) best = min(best, keys[k]);
-      for (int off = 16; off > 0; off >>= 1)
-        best = min(best, __shfl_xor_sync(0xffffffffu, best, off));
-      // high word = negv (floor of key / 2^32), low word = diag ^ sign bit
-      const int32_t negv = (int32_t)(best >> 32);
-      exhausted = negv >= 1;
-      if (!exhausted) {
-        for (int k = lane; k < n_pad; k += 32)
-          if (keys[k] == best) keys[k] = LLONG_MAX;
-        __syncwarp();
-        if (lane == 0) {
-          out_c[c] = (int32_t)((uint32_t)best ^ 0x80000000u);
-          out_v[c] = 1;
+      const int32_t m = __reduce_min_sync(kFull, bn);
+      if (m >= 1) {
+        exhausted = true;
+      } else {
+        const int w = __ffs(__ballot_sync(kFull, bn == m)) - 1;
+        win_d = __shfl_sync(kFull, bd, w);
+        win_v = 1;
+        if (lane == w) {  // knock the winner out, find the lane's next best
+          bool done = false;
+          bn = 1;
+          bd = kI32Max;
+#pragma unroll
+          for (int r = 0; r < E; ++r) {
+            if (!done && negv[r] == m) {
+              negv[r] = 1;
+              done = true;
+            }
+            if (negv[r] < bn) {
+              bn = negv[r];
+              bd = v[r];
+            }
+          }
         }
-        continue;
       }
     }
-    if (lane == 0) {
-      out_c[c] = kI32Max;
-      out_v[c] = 0;
+    if (lane == (c & 31)) {
+      my_c = win_d;
+      my_v = win_v;
+    }
+    if ((c & 31) == 31 || c == C - 1) {
+      const int slot = (c & ~31) + lane;
+      if (slot <= c) {
+        out_c[slot] = my_c;
+        out_v[slot] = my_v;
+      }
     }
   }
+}
+
+template <int E>
+cudaError_t launch(const int32_t* diags, int rows, int n, int C,
+                   int32_t* cand, uint8_t* valid, cudaStream_t stream) {
+  const int blocks = (rows + kWarps - 1) / kWarps;
+  select_kernel<E><<<blocks, kWarps * 32, 0, stream>>>(diags, rows, n, C,
+                                                       cand, valid);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -113,11 +241,25 @@ __global__ void select_kernel(const int32_t* __restrict__ diags, int rows,
 extern "C" int ps_select_candidates(const void* diags, int rows, int n,
                                     int n_pad, int C, void* cand, void* valid,
                                     void* stream) {
-  const size_t smem =
-      (size_t)kWarps * n_pad * (sizeof(long long) + sizeof(int32_t));
-  const int blocks = (rows + kWarps - 1) / kWarps;
-  select_kernel<<<blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      static_cast<const int32_t*>(diags), rows, n, n_pad, C,
-      static_cast<int32_t*>(cand), static_cast<uint8_t*>(valid));
-  return (int)cudaGetLastError();
+  const auto* d = static_cast<const int32_t*>(diags);
+  auto* oc = static_cast<int32_t*>(cand);
+  auto* ov = static_cast<uint8_t*>(valid);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (n < 1 || n > n_pad || C < 1) return (int)cudaErrorInvalidValue;
+  switch (n_pad) {
+    case 32:
+      return (int)launch<1>(d, rows, n, C, oc, ov, st);
+    case 64:
+      return (int)launch<2>(d, rows, n, C, oc, ov, st);
+    case 128:
+      return (int)launch<4>(d, rows, n, C, oc, ov, st);
+    case 256:
+      return (int)launch<8>(d, rows, n, C, oc, ov, st);
+    case 512:
+      return (int)launch<16>(d, rows, n, C, oc, ov, st);
+    case 1024:
+      return (int)launch<32>(d, rows, n, C, oc, ov, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,0 +1,509 @@
+"""ctypes wrapper around the C++ host-side fast paths (see
+parasuite_native.cpp for the design rationale and the numpy-fallback
+contract).
+
+Usage: call available() to check (attempts a lazy `make` the first time);
+kmer_index_build() and fastq_scan_file() raise if the library is missing —
+callers (index.kmer.KmerIndex.build, io.fastq) fall back to numpy paths that
+produce bit-identical output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+from pathlib import Path
+
+import numpy as np
+
+_DIR = Path(__file__).resolve().parent
+_LIB_PATH = _DIR / "libparasuite_native.so"
+_lib = None
+_tried = False
+
+
+def _load():
+    global _lib, _tried
+    if _lib is not None or _tried:
+        return _lib
+    _tried = True
+    if not _LIB_PATH.exists():
+        try:
+            subprocess.run(["make", "-s", "-C", str(_DIR)], timeout=120,
+                           capture_output=True, check=True)
+        except Exception:
+            return None
+    try:
+        lib = ctypes.CDLL(str(_LIB_PATH))
+        lib.ps_abi_version.restype = ctypes.c_int32
+        if lib.ps_abi_version() != 4:
+            # stale build: rebuild once and retry
+            subprocess.run(["make", "-s", "-B", "-C", str(_DIR)], timeout=120,
+                           capture_output=True, check=True)
+            lib = ctypes.CDLL(str(_LIB_PATH))
+            lib.ps_abi_version.restype = ctypes.c_int32
+            if lib.ps_abi_version() != 4:
+                return None
+        lib.ps_kmer_index_build.restype = ctypes.c_int64
+        lib.ps_kmer_index_build.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.ps_fastq_scan.restype = ctypes.c_int64
+        lib.ps_fastq_scan.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_int64)]
+        _lib = lib
+    except OSError:
+        _lib = None
+    return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def kmer_index_build(seq: np.ndarray, k: int):
+    """-> (bucket_starts int32 [4^k+1], positions int32 [n_kmers])."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    seq = np.ascontiguousarray(seq, dtype=np.int8)
+    nb = 4 ** k
+    bucket_starts = np.zeros(nb + 1, dtype=np.int32)
+    positions = np.empty(max(seq.shape[0], 1), dtype=np.int32)
+    n = lib.ps_kmer_index_build(
+        seq.ctypes.data, seq.shape[0], k,
+        bucket_starts.ctypes.data, positions.ctypes.data)
+    if n < 0:
+        raise RuntimeError("ps_kmer_index_build failed")
+    return bucket_starts, positions[:n].copy()
+
+
+def fastq_scan_chunk(buf, max_reads: int, max_len: int,
+                     length: int | None = None):
+    """Parse complete records from a bytes/bytearray chunk.
+
+    -> (n_parsed, consumed_bytes, codes int8 [max_reads, max_len],
+        lengths int32, names NameBlock (raw blob + offsets, zero per-record
+        Python work), quals uint8 [max_reads, max_len] 'I'-padded — the
+        ReadBatch layouts, written in place by C++)
+
+    A bytearray is scanned IN PLACE (no copy — the streaming reader's
+    multi-MB buffer would otherwise be re-copied on every call); `length`
+    restricts the scan to a prefix (line-complete region mid-file).
+    """
+    from parasuite_tpu_torch.io.batch import NameBlock
+
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    codes = np.full((max_reads, max_len), 4, dtype=np.int8)
+    lengths = np.zeros(max_reads, dtype=np.int32)
+    quals = np.full((max_reads, max_len), ord("I"), dtype=np.uint8)
+    # 64 bytes/name covers real read IDs; a longer-name batch just parses in
+    # more than one call (the scanner stops when names_cap fills)
+    names_cap = 4096 + 64 * max_reads
+    names_buf = ctypes.create_string_buffer(names_cap)
+    name_off = np.zeros(max_reads + 1, dtype=np.int64)
+    consumed = ctypes.c_int64(0)
+    scan_len = len(buf) if length is None else min(length, len(buf))
+    if isinstance(buf, bytearray):
+        view = (ctypes.c_char * len(buf)).from_buffer(buf)
+        addr = ctypes.addressof(view)
+    else:
+        view = None
+        addr = buf
+    try:
+        n = lib.ps_fastq_scan(
+            addr, scan_len, max_reads, max_len,
+            codes.ctypes.data, lengths.ctypes.data,
+            ctypes.addressof(names_buf), names_cap,
+            name_off.ctypes.data, quals.ctypes.data,
+            ctypes.byref(consumed))
+    finally:
+        del view  # release the bytearray export before the caller resizes it
+    if n < 0:
+        raise ValueError("malformed FASTQ chunk")
+    n = int(n)
+    names = NameBlock(ctypes.string_at(names_buf, int(name_off[n])),
+                      name_off[: n + 1].copy())
+    return n, int(consumed.value), codes, lengths, names, quals
+
+
+def sam_format_batch(ref_seq: np.ndarray, codes: np.ndarray,
+                     lengths: np.ndarray, names, quals: np.ndarray,
+                     rnames: list, flag: np.ndarray, rname_idx: np.ndarray,
+                     pos1: np.ndarray, packed_pos: np.ndarray,
+                     mapq: np.ndarray, nm: np.ndarray, x0: np.ndarray,
+                     x1: np.ndarray, score: np.ndarray,
+                     cigars=None) -> bytes:
+    """Format a run of records (bytes identical to io.sam.format_record,
+    including the MD tag). Raises if the native library is unavailable —
+    callers fall back to the Python formatter.
+
+    names: either a (blob bytes, offsets int64 [n+1]) pair — the NameBlock
+    raw layout the C++ FASTQ scanner emits, zero per-record work — or a
+    list[str] (joined here, slow-path convenience).
+    cigars: optional (cig_off int64 [n+1], ops uint8, lens int32) flat
+    arrays (op codes 0=M 1=I 2=D 3=N); an empty per-record range means the
+    default single "LM" run, so junction/gapped records format natively in
+    the same single call as everyone else."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    if not hasattr(lib.ps_sam_format_batch, "_configured"):
+        lib.ps_sam_format_batch.restype = ctypes.c_int64
+        lib.ps_sam_format_batch.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                            ctypes.c_int64, ctypes.c_int32] \
+            + [ctypes.c_void_p] * 20 + [ctypes.c_int64]
+        lib.ps_sam_format_batch._configured = True
+    if isinstance(names, tuple):
+        names_b, name_off = names
+        name_off = np.ascontiguousarray(name_off, dtype=np.int64)
+        n = name_off.shape[0] - 1
+    else:
+        n = len(names)
+        names_b = "".join(names).encode("ascii")
+        name_off = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum([len(s) for s in names], out=name_off[1:])
+    max_len = codes.shape[1]
+    rnames_b = "".join(rnames).encode("ascii")
+    rname_off = np.zeros(len(rnames) + 1, dtype=np.int64)
+    np.cumsum([len(s) for s in rnames], out=rname_off[1:])
+
+    codes = np.ascontiguousarray(codes, dtype=np.int8)
+    quals = np.ascontiguousarray(quals, dtype=np.uint8)
+    a32 = lambda x: np.ascontiguousarray(x, dtype=np.int32)
+    a64 = lambda x: np.ascontiguousarray(x, dtype=np.int64)
+    lengths, flag, rname_idx, pos1 = map(a32, (lengths, flag, rname_idx, pos1))
+    mapq, nm, x0, x1, score = map(a32, (mapq, nm, x0, x1, score))
+    packed_pos = a64(packed_pos)
+    ref_seq = np.ascontiguousarray(ref_seq, dtype=np.int8)
+
+    if cigars is not None:
+        cig_off, cig_ops, cig_lens = cigars
+        cig_off = np.ascontiguousarray(cig_off, dtype=np.int64)
+        cig_ops = np.ascontiguousarray(cig_ops, dtype=np.uint8)
+        cig_lens = np.ascontiguousarray(cig_lens, dtype=np.int32)
+        cp_off, cp_ops, cp_lens = (cig_off.ctypes.data, cig_ops.ctypes.data,
+                                   cig_lens.ctypes.data)
+        extra = int(cig_lens.sum()) + 8 * cig_ops.shape[0]
+    else:
+        cp_off = cp_ops = cp_lens = None
+        extra = 0
+    cap = int(n * (max_len * 2 + name_off[-1] // max(n, 1) + 160) + 4096
+              + 4 * extra)
+    out = ctypes.create_string_buffer(cap)
+    w = lib.ps_sam_format_batch(
+        ref_seq.ctypes.data, ref_seq.shape[0], n, max_len,
+        codes.ctypes.data, lengths.ctypes.data,
+        names_b, name_off.ctypes.data, quals.ctypes.data,
+        rnames_b, rname_off.ctypes.data,
+        flag.ctypes.data, rname_idx.ctypes.data, pos1.ctypes.data,
+        packed_pos.ctypes.data, mapq.ctypes.data, nm.ctypes.data,
+        x0.ctypes.data, x1.ctypes.data, score.ctypes.data,
+        cp_off, cp_ops, cp_lens,
+        out, cap)
+    if w < 0:
+        raise RuntimeError("ps_sam_format_batch failed (buffer/input)")
+    # raw bytes, no ascii decode/re-encode round trip: writers sink bytes
+    return ctypes.string_at(out, w)
+
+
+def bam_format_batch(ref_seq: np.ndarray, codes: np.ndarray,
+                     lengths: np.ndarray, names, quals: np.ndarray,
+                     rnames: list, flag: np.ndarray, rname_idx: np.ndarray,
+                     pos1: np.ndarray, packed_pos: np.ndarray,
+                     mapq: np.ndarray, nm: np.ndarray, x0: np.ndarray,
+                     x1: np.ndarray, score: np.ndarray,
+                     cigars=None) -> bytes:
+    """Format a run of records as BAM record bytes —
+    byte-identical to io.bam.encode_bam_record applied to
+    sam_format_batch's text (enforced by tests/test_native.py). Same
+    signature as sam_format_batch so AlignerEngine.emit_bam mirrors
+    emit_sam."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    if not hasattr(lib.ps_bam_format_batch, "_configured"):
+        lib.ps_bam_format_batch.restype = ctypes.c_int64
+        lib.ps_bam_format_batch.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                            ctypes.c_int64, ctypes.c_int32] \
+            + [ctypes.c_void_p] * 20 + [ctypes.c_int64]
+        lib.ps_bam_format_batch._configured = True
+    if isinstance(names, tuple):
+        names_b, name_off = names
+        name_off = np.ascontiguousarray(name_off, dtype=np.int64)
+        n = name_off.shape[0] - 1
+    else:
+        n = len(names)
+        names_b = "".join(names).encode("ascii")
+        name_off = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum([len(s) for s in names], out=name_off[1:])
+    max_len = codes.shape[1]
+    rnames_b = "".join(rnames).encode("ascii")
+    rname_off = np.zeros(len(rnames) + 1, dtype=np.int64)
+    np.cumsum([len(s) for s in rnames], out=rname_off[1:])
+
+    codes = np.ascontiguousarray(codes, dtype=np.int8)
+    quals = np.ascontiguousarray(quals, dtype=np.uint8)
+    a32 = lambda x: np.ascontiguousarray(x, dtype=np.int32)
+    lengths, flag, rname_idx, pos1 = map(a32, (lengths, flag, rname_idx, pos1))
+    mapq, nm, x0, x1, score = map(a32, (mapq, nm, x0, x1, score))
+    packed_pos = np.ascontiguousarray(packed_pos, dtype=np.int64)
+    ref_seq = np.ascontiguousarray(ref_seq, dtype=np.int8)
+
+    if cigars is not None:
+        cig_off, cig_ops, cig_lens = cigars
+        cig_off = np.ascontiguousarray(cig_off, dtype=np.int64)
+        cig_ops = np.ascontiguousarray(cig_ops, dtype=np.uint8)
+        cig_lens = np.ascontiguousarray(cig_lens, dtype=np.int32)
+        cp_off, cp_ops, cp_lens = (cig_off.ctypes.data, cig_ops.ctypes.data,
+                                   cig_lens.ctypes.data)
+        extra = int(cig_lens.sum()) + 8 * cig_ops.shape[0]
+    else:
+        cp_off = cp_ops = cp_lens = None
+        extra = 0
+    cap = int(n * (max_len * 2 + name_off[-1] // max(n, 1) + 200) + 4096
+              + 4 * extra)
+    out = ctypes.create_string_buffer(cap)
+    w = lib.ps_bam_format_batch(
+        ref_seq.ctypes.data, ref_seq.shape[0], n, max_len,
+        codes.ctypes.data, lengths.ctypes.data,
+        names_b, name_off.ctypes.data, quals.ctypes.data,
+        rnames_b, rname_off.ctypes.data,
+        flag.ctypes.data, rname_idx.ctypes.data, pos1.ctypes.data,
+        packed_pos.ctypes.data, mapq.ctypes.data, nm.ctypes.data,
+        x0.ctypes.data, x1.ctypes.data, score.ctypes.data,
+        cp_off, cp_ops, cp_lens,
+        out, cap)
+    if w < 0:
+        raise RuntimeError("ps_bam_format_batch failed (buffer/input)")
+    return ctypes.string_at(out, w)
+
+
+def bam_sort(in_path, out_path, header_blob: bytes, min_mapq: int = 0,
+             mapped_only: bool = False, max_in_memory: int = 4_000_000,
+             level: int = 6) -> int:
+    """Coordinate-sort a BAM into a BAM entirely in C++ (inflate -> filter ->
+    stable external sort -> BGZF deflate), byte-identical to
+    io.bam.coordinate_sort's Python path (tests/test_bam.py). header_blob is
+    the full output BAM header bytes (magic + SO:coordinate text + ref
+    dictionary), built by the caller. Returns records written."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    if not hasattr(lib.ps_bam_sort, "_configured"):
+        lib.ps_bam_sort.restype = ctypes.c_int64
+        lib.ps_bam_sort.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
+                                    ctypes.c_char_p, ctypes.c_int64,
+                                    ctypes.c_int32, ctypes.c_int32,
+                                    ctypes.c_int64, ctypes.c_int32]
+        lib.ps_bam_sort._configured = True
+    n = lib.ps_bam_sort(str(in_path).encode(), str(out_path).encode(),
+                        header_blob, len(header_blob),
+                        int(min_mapq), int(bool(mapped_only)),
+                        int(max_in_memory), int(level))
+    if n == -1:
+        raise ValueError("malformed or truncated BAM input")
+    if n < 0:
+        raise RuntimeError("ps_bam_sort I/O failure")
+    return int(n)
+
+
+def bgzf_compress(data: bytes, level: int = 6) -> bytes:
+    """data -> spec BGZF members (no EOF marker), same framing as
+    io.bam.BgzfWriter but compressed in C++ (GIL released during deflate)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    if not hasattr(lib.ps_bgzf_compress, "_configured"):
+        lib.ps_bgzf_compress.restype = ctypes.c_int64
+        lib.ps_bgzf_compress.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_int64]
+        lib.ps_bgzf_compress._configured = True
+    cap = len(data) + (len(data) // 65280 + 2) * 256 + 1024
+    out = ctypes.create_string_buffer(cap)
+    w = lib.ps_bgzf_compress(data, len(data), level, out, cap)
+    if w < 0:
+        raise RuntimeError("ps_bgzf_compress failed")
+    return ctypes.string_at(out, w)
+
+
+def bam_cluster_scan(buf: bytes, ref_seq: np.ndarray,
+                     refid_starts: np.ndarray, max_recs: int):
+    """Scan complete uncompressed BAM records from a bytes chunk into the
+    cluster columns. refid_starts: int64 [n_refids] packed start per BAM
+    refID (-1 = unknown). -> (n, consumed, pos, span, tc, n_skipped)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    if not hasattr(lib.ps_bam_cluster_scan, "_configured"):
+        lib.ps_bam_cluster_scan.restype = ctypes.c_int64
+        lib.ps_bam_cluster_scan.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64)]
+        lib.ps_bam_cluster_scan._configured = True
+    ref_seq = np.ascontiguousarray(ref_seq, dtype=np.int8)
+    starts = np.ascontiguousarray(refid_starts, dtype=np.int64)
+    pos = np.empty(max_recs, dtype=np.int64)
+    span = np.empty(max_recs, dtype=np.int32)
+    tc = np.empty(max_recs, dtype=np.int32)
+    consumed = ctypes.c_int64(0)
+    skipped = ctypes.c_int64(0)
+    n = lib.ps_bam_cluster_scan(
+        buf, len(buf), ref_seq.ctypes.data, ref_seq.shape[0],
+        starts.ctypes.data, starts.shape[0], max_recs,
+        pos.ctypes.data, span.ctypes.data, tc.ctypes.data,
+        ctypes.byref(consumed), ctypes.byref(skipped))
+    if n < 0:
+        raise ValueError("malformed BAM chunk")
+    n = int(n)
+    return (n, int(consumed.value), pos[:n], span[:n], tc[:n],
+            int(skipped.value))
+
+
+def bam_cluster_columns(path, ref, chunk_bytes: int = 8 << 20):
+    """Stream a BGZF BAM file into cluster columns with the C++ record
+    scanner — no temp SAM (VERDICT r3 weak #3). BAM refIDs are mapped to
+    the reference's packed starts by header name; refIDs naming chromosomes
+    the reference does not know are skipped (counted).
+    -> (pos int64 [N], span int32 [N], tc int32 [N], n_skipped)."""
+    import gzip
+
+    from parasuite_tpu_torch.io.bam import read_bam_header
+
+    name_to_start = {nm: int(ref.starts[i]) for i, nm in enumerate(ref.names)}
+    pos_l, span_l, tc_l = [], [], []
+    n_skipped = 0
+    with gzip.open(path, "rb") as fh:
+        _text, names, _lens, = read_bam_header(fh)[:3]
+        refid_starts = np.asarray(
+            [name_to_start.get(nm, -1) for nm in names], dtype=np.int64)
+        if refid_starts.shape[0] == 0:
+            refid_starts = np.full(1, -1, dtype=np.int64)
+        buf = bytearray()
+        eof = False
+        while True:
+            if not eof:
+                chunk = fh.read(chunk_bytes)
+                if not chunk:
+                    eof = True
+                else:
+                    buf += chunk
+            while buf:
+                n, consumed, p, s, t, sk = bam_cluster_scan(
+                    bytes(buf), ref.seq, refid_starts,
+                    max_recs=len(buf) // 36 + 1)
+                n_skipped += sk
+                if consumed == 0:
+                    break
+                del buf[:consumed]
+                if n:
+                    pos_l.append(p)
+                    span_l.append(s)
+                    tc_l.append(t)
+            if eof:
+                if buf:
+                    raise ValueError("truncated BAM record at EOF")
+                break
+    if not pos_l:
+        return (np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int32),
+                np.zeros(0, dtype=np.int32), n_skipped)
+    return (np.concatenate(pos_l), np.concatenate(span_l),
+            np.concatenate(tc_l), n_skipped)
+
+
+def sam_cluster_scan(buf: bytes, ref_seq: np.ndarray, rnames: list,
+                     rname_starts: np.ndarray, max_recs: int):
+    """Scan complete SAM data lines from a bytes chunk into the cluster
+    columns (packed_pos int64, ref_span int32, tc int32) — the C++
+    equivalent of the read_sam + tc_count_from_cigar record loop
+    (SURVEY.md §3.5; parity enforced by tests/test_native.py).
+
+    -> (n, consumed_bytes, pos, span, tc, n_skipped). Skipped = unmapped or
+    unknown-RNAME records."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    if not hasattr(lib.ps_sam_cluster_scan, "_configured"):
+        lib.ps_sam_cluster_scan.restype = ctypes.c_int64
+        lib.ps_sam_cluster_scan.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64)]
+        lib.ps_sam_cluster_scan._configured = True
+    ref_seq = np.ascontiguousarray(ref_seq, dtype=np.int8)
+    rnames_b = "".join(rnames).encode("ascii")
+    rname_off = np.zeros(len(rnames) + 1, dtype=np.int64)
+    np.cumsum([len(s) for s in rnames], out=rname_off[1:])
+    starts = np.ascontiguousarray(rname_starts, dtype=np.int64)
+    pos = np.empty(max_recs, dtype=np.int64)
+    span = np.empty(max_recs, dtype=np.int32)
+    tc = np.empty(max_recs, dtype=np.int32)
+    consumed = ctypes.c_int64(0)
+    skipped = ctypes.c_int64(0)
+    n = lib.ps_sam_cluster_scan(
+        buf, len(buf), ref_seq.ctypes.data, ref_seq.shape[0],
+        rnames_b, rname_off.ctypes.data, len(rnames),
+        starts.ctypes.data, max_recs,
+        pos.ctypes.data, span.ctypes.data, tc.ctypes.data,
+        ctypes.byref(consumed), ctypes.byref(skipped))
+    if n < 0:
+        raise ValueError("malformed SAM chunk")
+    n = int(n)
+    return (n, int(consumed.value), pos[:n], span[:n], tc[:n],
+            int(skipped.value))
+
+
+def sam_cluster_columns(path, ref, chunk_bytes: int = 8 << 20):
+    """Stream a SAM file into concatenated cluster columns using the C++
+    scanner. -> (pos int64 [N], span int32 [N], tc int32 [N], n_skipped)."""
+    pos_l, span_l, tc_l = [], [], []
+    n_skipped = 0
+    buf = bytearray()
+    # generous per-chunk record bound: a data line is > 20 bytes
+    with open(path, "rb") as fh:
+        eof = False
+        while True:
+            if not eof:
+                chunk = fh.read(chunk_bytes)
+                if not chunk:
+                    eof = True
+                else:
+                    buf += chunk
+            scan_end = len(buf) if eof else buf.rfind(b"\n") + 1
+            while scan_end > 0:
+                n, consumed, p, s, t, sk = sam_cluster_scan(
+                    bytes(buf[:scan_end]), ref.seq, ref.names, ref.starts,
+                    max_recs=scan_end // 20 + 1)
+                n_skipped += sk
+                if n == 0 and consumed == 0:
+                    break
+                del buf[:consumed]
+                scan_end -= consumed
+                if n:
+                    pos_l.append(p)
+                    span_l.append(s)
+                    tc_l.append(t)
+                if n == 0:
+                    break
+            if eof:
+                if buf.strip():
+                    raise ValueError(
+                        f"trailing unparseable SAM bytes: {bytes(buf[:50])!r}")
+                break
+    if not pos_l:
+        return (np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int32),
+                np.zeros(0, dtype=np.int32), n_skipped)
+    return (np.concatenate(pos_l), np.concatenate(span_l),
+            np.concatenate(tc_l), n_skipped)

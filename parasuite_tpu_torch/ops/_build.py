@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources under parasuite_tpu_torch/csrc/*.cu are compiled by nvcc for
-sm_90a into one shared library with a plain C interface,
+sm_90a (one nvcc per source, all started together) and linked into one
+shared library with a plain C interface,
 parasuite_tpu_torch/build/libparasuite_cuda.so, loaded with ctypes. The
 build runs at first use (never at import) and again whenever the sources or
 flags change: a SHA-256 of both is stored beside the library.
@@ -25,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 LIB = BUILD / "libparasuite_cuda.so"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 build_log = ""   # nvcc's output from the last build (ptxas register report)
@@ -61,14 +62,32 @@ def build() -> Path:
     if LIB.exists() and stamp.exists() and stamp.read_text() == digest:
         return LIB
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD / f"libparasuite_cuda.{os.getpid()}.so"
-    cmd = [nvcc_path(), *FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, LIB)
+    nvcc, pid = nvcc_path(), os.getpid()
+    objs = [BUILD / f"{src.stem}.{pid}.o" for src in _sources()]
+    tmp = BUILD / f"libparasuite_cuda.{pid}.so"
+    procs = []
+    try:
+        procs += [subprocess.Popen([nvcc, *FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_sources(), objs)]
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+        build_log = "".join(logs)
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True, timeout=900)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{build_log}")
+        os.replace(tmp, LIB)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     stamp.write_text(digest)
     return LIB
 

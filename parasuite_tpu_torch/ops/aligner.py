@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from parasuite_tpu.config import AlignConfig
+from parasuite_tpu_torch.config import AlignConfig
 from parasuite_tpu_torch.ops.cuda_extend import NEG, extend_candidates
 from parasuite_tpu_torch.ops.cuda_seed import I32MAX, select_candidates
 from parasuite_tpu_torch.ops.device_index import DeviceIndex, ScoreParams

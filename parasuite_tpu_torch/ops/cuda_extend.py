@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from parasuite_tpu.config import AlignConfig
+from parasuite_tpu_torch.config import AlignConfig
 from parasuite_tpu_torch.ops.device_index import DeviceIndex, ScoreParams
 
 NEG = -(1 << 28)

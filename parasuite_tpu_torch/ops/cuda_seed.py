@@ -5,18 +5,27 @@ select_candidates_pallas). Contract: parasuite_tpu/ops/aligner.py
 select_candidates — per oriented read, the top C unique diagonals by
 (votes desc, diag asc), votes = number of seeds on the same diagonal.
 
-Kernel (csrc/select_candidates.cu): one warp per oriented read. The row's n
-diagonals go to shared memory, padded with I32MAX to a power of two, and are
-bitonic-sorted there; run starts and run lengths (the votes) come from
-neighbour compares; C rounds of a warp-shuffle argmin over the packed int64
-key (-votes, diag) pick the winners, each knocked out after its round.
+Kernel (csrc/select_candidates.cu): one warp per oriented read, the row in
+registers. The row's n diagonals are padded with I32MAX to n_pad, a power of
+two from 32 to 1,024, and each lane holds E = n_pad / 32 of them (the kernel
+is a template on E). A bitonic network whose compare-exchanges are all
+ascending sorts the row: pairs inside a lane are a min and a max between two
+registers, pairs across lanes one warp shuffle per entry, every index a
+constant after unrolling. Run starts come from neighbour compares, run
+lengths (the votes) from a suffix minimum of run-start positions inside the
+lane and over lanes, as in the plain version below. Each of the C rounds is
+one warp-wide minimum of every lane's best -votes; the lowest lane that
+holds it owns the smallest such diagonal (the row is in diagonal order), and
+only that lane rescans its registers.
 
-What bounds it on the H100: nothing in memory — a row is n * 4 bytes
-(448 B at 7 seeds x 16 occurrences) read once, and the whole [2B, S*M] array
-at 65,536 reads is 59 MB. The cost is the log^2(n) compare-exchange passes
-of the sort, each a shared-memory round trip with a warp barrier, plus the
-C argmin rounds. The design keeps every step inside one warp (no block
-barriers, no global scratch) so warps on an SM interleave freely.
+What bounds it on the H100: the function is bound by bytes — a row is
+n * 4 bytes (448 B at 7 seeds x 16 occurrences) read once and 5 * C bytes
+written, 64 MB at 65,536 reads, and a comparison sort of the row needs only
+about n * log2(n) compares. The kernel spends more than that in
+instructions: n_pad/2 * log2(n_pad) * (log2(n_pad) + 1) / 2
+compare-exchanges per row (1,792 at n_pad = 128) on the int32 pipe and the
+shuffle unit. The design keeps them cheap: no shared memory, no barrier, no
+division, no 64-bit key.
 """
 
 from __future__ import annotations
@@ -26,10 +35,10 @@ import ctypes
 import numpy as np
 import torch
 
-from parasuite_tpu.config import AlignConfig
+from parasuite_tpu_torch.config import AlignConfig
 
 I32MAX = int(np.iinfo(np.int32).max)
-MAX_PAD = 1024   # row buffer per warp: 4 warps * 12 B/entry = 48 KB shared
+MAX_PAD = 1024   # widest row the kernel is built for: 32 registers a lane
 
 launches = 0     # kernel launches through select_candidates
 
@@ -85,7 +94,7 @@ def select_candidates(diags: torch.Tensor, cfg: AlignConfig):
         n_pad *= 2
     if n_pad > MAX_PAD:
         raise ValueError(f"select_candidates: n={n} exceeds the kernel's "
-                         f"{MAX_PAD}-entry row buffer")
+                         f"widest row of {MAX_PAD} entries")
     cand = torch.empty((rows, C), dtype=torch.int32, device=diags.device)
     valid = torch.empty((rows, C), dtype=torch.bool, device=diags.device)
     if rows == 0:

@@ -12,10 +12,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from parasuite_tpu.config import AlignConfig
-from parasuite_tpu.errormodel.scoring import complement_score_tensor
-from parasuite_tpu.index.kmer import KmerIndex
-from parasuite_tpu.index.reference import PackedReference
+from parasuite_tpu_torch.config import AlignConfig
+from parasuite_tpu_torch.errormodel.scoring import complement_score_tensor
+from parasuite_tpu_torch.index.kmer import KmerIndex
+from parasuite_tpu_torch.index.reference import PackedReference
 
 
 def _to(x: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from parasuite_tpu.config import AlignConfig
+from parasuite_tpu_torch.config import AlignConfig
 from parasuite_tpu_torch.ops.aligner import comp_table
 from parasuite_tpu_torch.ops.device_index import DeviceIndex
 

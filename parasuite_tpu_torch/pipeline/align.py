@@ -5,7 +5,7 @@ Counterpart of parasuite_tpu/pipeline/align.py. The device step is
 ops/aligner.py::align_batch (align_batch_with_candidates with XA tags) on the
 engine's device; the two-tier rescue pass (config.rescue_kmer) is a second
 align_batch at the smaller k. Host tracebacks for the rare gapped winners,
-XA strings and SAM/BAM emission are numpy and C++ (parasuite_tpu native).
+XA strings and SAM/BAM emission are numpy and C++ (native/).
 host_traceback, host_tracebacks_batch, LazyCigars, HostAlignments, the XA,
 rescue and emit paths are copies of the reference's (its pipeline package
 imports jax when it is imported), pinned to it by tests/test_torch_*.py.
@@ -18,19 +18,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from parasuite_tpu.config import AlignConfig
-from parasuite_tpu.errormodel.scoring import (complement_score_tensor,
-                                              flat_score_tensor)
-from parasuite_tpu.index.kmer import KmerIndex
-from parasuite_tpu.index.reference import PackedReference
-from parasuite_tpu.io.batch import ReadBatch
-from parasuite_tpu.io.sam import format_record
-from parasuite_tpu.oracle.align import (_ref_window, _score_rows, banded_dp,
-                                        traceback_alignment)
-from parasuite_tpu.utils.dna import N, revcomp_codes
+from parasuite_tpu_torch.config import AlignConfig
+from parasuite_tpu_torch.errormodel.scoring import (complement_score_tensor,
+                                                    flat_score_tensor)
+from parasuite_tpu_torch.index.kmer import KmerIndex
+from parasuite_tpu_torch.index.reference import PackedReference
+from parasuite_tpu_torch.io.batch import ReadBatch
+from parasuite_tpu_torch.io.sam import format_record
+from parasuite_tpu_torch.oracle.align import (_ref_window, _score_rows,
+                                              banded_dp, traceback_alignment)
+from parasuite_tpu_torch.utils.dna import N, revcomp_codes
 from parasuite_tpu_torch.ops.aligner import (AlignResult, CandidateTable,
-                                              align_batch,
-                                              align_batch_with_candidates)
+                                             align_batch,
+                                             align_batch_with_candidates)
 from parasuite_tpu_torch.ops.device_index import (DeviceIndex, ScoreParams,
                                                   min_score_table)
 from parasuite_tpu_torch.ops.profile_update import profile_counts_batch
@@ -89,7 +89,7 @@ def host_tracebacks_batch(ref_seq: np.ndarray, s_tensor: np.ndarray,
     oriented: int8 [G, L] genome-frame reads (N-padded past each length).
     -> [(packed_start_pos, cigar, nm)] per read.
     """
-    from parasuite_tpu.oracle.align import NEG, traceback_alignment
+    from parasuite_tpu_torch.oracle.align import NEG, traceback_alignment
 
     G = oriented.shape[0]
     if G == 0:
@@ -491,7 +491,7 @@ class AlignerEngine:
         silently discarded. rows optionally restricts emission to a subset
         of batch rows (combined mode handles transcript-candidate rows in
         its slow path)."""
-        from parasuite_tpu.io.sam import cigar_string
+        from parasuite_tpu_torch.io.sam import cigar_string
 
         t_valid = np.asarray(table.valid)
         t_strand = np.asarray(table.strand)
@@ -581,7 +581,7 @@ class AlignerEngine:
         (host tracebacks). Feeds ErrorProfile during pass-1 inference so
         every aligned read contributes. Returns the number of gapped
         reads."""
-        from parasuite_tpu.errormodel.infer import (
+        from parasuite_tpu_torch.errormodel.infer import (
             count_indels_from_cigar, count_substitutions_from_cigar)
 
         if not hasattr(res, "mapped"):
@@ -630,7 +630,7 @@ class AlignerEngine:
         self._emit(batch, host, writer, bam=True)
 
     def _emit(self, batch, host, writer, bam: bool) -> None:
-        from parasuite_tpu import native
+        from parasuite_tpu_torch import native
 
         n = batch.n_real
         use_native = (native.available()
@@ -707,7 +707,7 @@ class AlignerEngine:
 
     def _format_native_run(self, batch, host, b, e, fmt) -> bytes:
         """Records [b, e) through one native formatter call."""
-        from parasuite_tpu.io.batch import NameBlock
+        from parasuite_tpu_torch.io.batch import NameBlock
 
         sl = slice(b, e)
         mapped = host.mapped[sl]

@@ -18,8 +18,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from parasuite_tpu.config import AlignConfig
-from parasuite_tpu.index.reference import PackedReference
+from parasuite_tpu_torch.config import AlignConfig
+from parasuite_tpu_torch.index.reference import PackedReference
 
 
 @dataclass

@@ -40,17 +40,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from parasuite_tpu.config import AlignConfig
-from parasuite_tpu.index.kmer import KmerIndex
-from parasuite_tpu.index.reference import PackedReference
-from parasuite_tpu.utils.dna import revcomp_codes
+from parasuite_tpu_torch.config import AlignConfig
+from parasuite_tpu_torch.index.kmer import KmerIndex
+from parasuite_tpu_torch.index.reference import PackedReference
+from parasuite_tpu_torch.utils.dna import revcomp_codes
 from parasuite_tpu_torch.pipeline.align import (AlignerEngine, HostAlignments,
                                                 LazyCigars, fetch_host,
                                                 host_tracebacks_batch,
                                                 orient_rows)
-from parasuite_tpu_torch.ops.aligner import (PackedCandidates,
-                                              TxDeviceTables,
-                                              align_batch_combined_packed)
+from parasuite_tpu_torch.ops.aligner import (PackedCandidates, TxDeviceTables,
+                                             align_batch_combined_packed)
 from parasuite_tpu_torch.pipeline.clusters import tc_count_from_cigar
 
 TX_PREFIX = "tx::"
@@ -596,7 +595,7 @@ class CombinedEngine(AlignerEngine):
         strand, chrom, pos, src), and derive X0/X1/MAPQ — all as flat-array
         lexsort/reduceat passes. Only junction-CIGAR assembly and gapped
         tracebacks remain per-entry Python."""
-        from parasuite_tpu.utils.dna import COMP
+        from parasuite_tpu_torch.utils.dna import COMP
 
         cfg = self.cfg
         cref = self.combined.ref
@@ -832,7 +831,7 @@ class CombinedEngine(AlignerEngine):
         # chrom,(+/-)pos1,CIGAR,NM; overflow past xa_limit is counted in
         # xa_dropped, never silently discarded.
         if xa is not None:
-            from parasuite_tpu.io.sam import cigar_string
+            from parasuite_tpu_torch.io.sam import cigar_string
             gstarts = self.genome_ref.starts
             gnames = self.genome_ref.names
             nm_keep = f_nm[keep]
@@ -875,9 +874,9 @@ class CombinedEngine(AlignerEngine):
         is one vectorized window-gather + bincount, gapped/junction winners
         walk their CIGARs. Returns (n_profiled, n_gapped) increments.
         """
-        from parasuite_tpu.errormodel.infer import (
+        from parasuite_tpu_torch.errormodel.infer import (
             count_indels_from_cigar, count_substitutions_from_cigar)
-        from parasuite_tpu.utils.dna import COMP
+        from parasuite_tpu_torch.utils.dna import COMP
 
         n = batch.n_real
         lens = np.asarray(batch.lengths)[:n].astype(np.int64)
@@ -925,7 +924,7 @@ class CombinedEngine(AlignerEngine):
 
 def build_combined_index(fasta, annotation, out_prefix, cfg: AlignConfig) -> dict:
     """CLI entry: FASTA + exon table -> combined packed ref + k-mer index."""
-    from parasuite_tpu.io.fasta import read_fasta
+    from parasuite_tpu_torch.io.fasta import read_fasta
 
     genome = read_fasta(fasta)
     txs = load_annotation(annotation)

@@ -38,10 +38,10 @@ from pathlib import Path
 
 import numpy as np
 
-from parasuite_tpu.config import AlignConfig
-from parasuite_tpu.io.fastq import iter_fastq_batches
-from parasuite_tpu.io.sam import sam_header
-from parasuite_tpu.utils.runlog import NULL_LOG
+from parasuite_tpu_torch.config import AlignConfig
+from parasuite_tpu_torch.io.fastq import iter_fastq_batches
+from parasuite_tpu_torch.io.sam import sam_header
+from parasuite_tpu_torch.utils.runlog import NULL_LOG
 
 
 def _cfg_hash(cfg: AlignConfig) -> str:
@@ -126,7 +126,7 @@ class _BamSink:
     fh.tell() is always a valid BGZF prefix (resume contract)."""
 
     def __init__(self, fh, ref, level: int = 6):
-        from parasuite_tpu import native
+        from parasuite_tpu_torch import native
 
         self._fh = fh
         self._buf = bytearray()
@@ -135,7 +135,7 @@ class _BamSink:
         self._native = native.available()
 
     def write(self, line: str) -> None:
-        from parasuite_tpu.io.bam import encode_bam_record
+        from parasuite_tpu_torch.io.bam import encode_bam_record
 
         self._buf += encode_bam_record(line.split("\t"), self._rid_of)
 
@@ -148,13 +148,13 @@ class _BamSink:
         data = bytes(self._buf)
         self._buf.clear()
         if self._native:
-            from parasuite_tpu import native
+            from parasuite_tpu_torch import native
 
             self._fh.write(native.bgzf_compress(data, self.level))
         else:
             import zlib
 
-            from parasuite_tpu.io.bam import _MAX_BLOCK
+            from parasuite_tpu_torch.io.bam import _MAX_BLOCK
             import struct
             for i in range(0, len(data), _MAX_BLOCK):
                 chunk = data[i : i + _MAX_BLOCK]
@@ -189,7 +189,7 @@ def streaming_align(engine, fastq, out_sam, *, resume: bool = False,
     dict) receives high-water marks {"pending_high", "q_in_high",
     "q_out_high"} so tests can assert the window exists as documented.
     """
-    from parasuite_tpu.errormodel.infer import (
+    from parasuite_tpu_torch.errormodel.infer import (
         count_indels_from_cigar, count_substitutions_from_cigar)
 
     cfg = engine.cfg
@@ -342,7 +342,7 @@ def streaming_align(engine, fastq, out_sam, *, resume: bool = False,
                 # indel events + M-segment substitution counts from the
                 # gapped CIGARs to_host already built (SURVEY.md §3.3: the
                 # reference's record loop counts every aligned read)
-                from parasuite_tpu.utils.dna import revcomp_codes
+                from parasuite_tpu_torch.utils.dna import revcomp_codes
 
                 for b in range(batch.n_real):
                     if host.mapped[b] and not host.ug_equal[b]:
@@ -432,7 +432,7 @@ def streaming_align(engine, fastq, out_sam, *, resume: bool = False,
         if bam_out:
             # EOF marker AFTER the committed offset: truncate-on-resume cuts
             # it off and the stream stays appendable; complete runs carry it
-            from parasuite_tpu.io.bam import BGZF_EOF
+            from parasuite_tpu_torch.io.bam import BGZF_EOF
 
             fh.write(BGZF_EOF)
         if stats_out is not None:

@@ -19,8 +19,9 @@ from typing import Callable, Iterable
 
 import numpy as np
 
-from parasuite_tpu.errormodel.infer import ErrorProfile, counts_to_profile
-from parasuite_tpu.io.batch import ReadBatch
+from parasuite_tpu_torch.errormodel.infer import (ErrorProfile,
+                                                  counts_to_profile)
+from parasuite_tpu_torch.io.batch import ReadBatch
 from parasuite_tpu_torch.pipeline.align import AlignerEngine
 
 

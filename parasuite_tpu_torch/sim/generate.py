@@ -24,9 +24,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from parasuite_tpu.config import AlignConfig
-from parasuite_tpu.index.reference import PackedReference
-from parasuite_tpu.utils.dna import C, N, T
+from parasuite_tpu_torch.config import AlignConfig
+from parasuite_tpu_torch.index.reference import PackedReference
+from parasuite_tpu_torch.utils.dna import C, N, T
 from parasuite_tpu_torch.sim import threefry as tf
 
 

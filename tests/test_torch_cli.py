@@ -18,6 +18,7 @@ from parasuite_tpu import cli as jcli
 from parasuite_tpu_torch import cli as tcli
 
 from conftest import sample_reads
+from _torch_helpers import to_port
 
 torch.set_num_threads(1)
 FLAGS = ["--max-read-len", "50", "--kmer-size", "8", "--band-width", "3",
@@ -153,23 +154,25 @@ def test_cluster_copies_equal_reference(world):
     from parasuite_tpu_torch.sim.generate import simulate_reads as tsim
 
     ref = PackedReference.load(world / "idx")
+    t_ref = to_port(ref)
     cols_j = jcli.cluster_columns_python(world / "tp.sam", ref)
-    cols_t = tcli.cluster_columns_python(world / "tp.sam", ref)
+    cols_t = tcli.cluster_columns_python(world / "tp.sam", t_ref)
     for a, b in zip(cols_j, cols_t):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
     for min_reads in (1, 2, 3):
         cfg = AlignConfig(cluster_min_reads=min_reads)
         want = jc.call_clusters(ref, *cols_j, cfg)
-        got = tc.call_clusters(ref, *cols_t, cfg)
+        got = tc.call_clusters(t_ref, *cols_t, to_port(cfg))
         assert [c.to_tsv() for c in got] == [c.to_tsv() for c in want]
         assert len(want) > 0
     assert tc.TSV_HEADER == jc.TSV_HEADER
-    assert tc.call_clusters(ref, *(x[:0] for x in cols_t), cfg) == []
+    assert tc.call_clusters(t_ref, *(x[:0] for x in cols_t),
+                            to_port(cfg)) == []
 
     cfg = AlignConfig(max_read_len=50, kmer_size=8)
     _, _, jt = jsim(ref, 64, 50, cfg, seed=4)
-    _, _, tt = tsim(ref, 64, 50, cfg, seed=4)
+    _, _, tt = tsim(t_ref, 64, 50, to_port(cfg), seed=4)
     rng = np.random.default_rng(0)
     mapped = rng.random(64) < 0.9
     strand = np.where(rng.random(64) < 0.9, tt.strand, 1 - tt.strand)

@@ -29,6 +29,7 @@ from parasuite_tpu_torch.pipeline import combined as tc
 from parasuite_tpu_torch.pipeline.stream import streaming_align as t_stream
 
 from conftest import sample_reads
+from _torch_helpers import to_port
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
@@ -165,9 +166,9 @@ def _host_copy_case(name, genome, tmp_path):
         d = tmp_path / mod.__name__.split(".")[0]
         d.mkdir()
         if name == "build_combined_index":
-            meta = mod.build_combined_index(tmp_path / "g.fa",
-                                            tmp_path / "ann.tsv", d / "c",
-                                            cfg)
+            meta = mod.build_combined_index(
+                tmp_path / "g.fa", tmp_path / "ann.tsv", d / "c",
+                cfg if mod is jc else to_port(cfg))
         else:
             comb = mod.CombinedReference.build(genome, list(_txs(mod)), 64)
             comb.save(d / "c")
@@ -202,12 +203,16 @@ def test_host_copies_equal_reference(name, genome, tmp_path):
 # ---------------------------------------------------------------------------
 
 def _engines(genome, cfg, txs=None, **kw):
+    """The reference engine on the JAX package's objects, the port's on its
+    own (its CombinedReference, and index and config through to_port)."""
     out = []
     for mod, extra in ((jc, {}), (tc, {"device": "cpu"})):
         comb = mod.CombinedReference.build(
             genome, list(txs[mod] if txs else _txs(mod)),
             spacer=cfg.chrom_spacer)
         index = KmerIndex.build(comb.ref.seq, cfg.kmer_size)
+        if mod is tc:
+            index, cfg = to_port(index), to_port(cfg)
         out.append(mod.CombinedEngine(comb, index, cfg, **kw, **extra))
     return out
 
@@ -267,10 +272,11 @@ def test_combined_to_host_equals_reference(case, genome, small_cfg):
     jeng, teng = _engines(genome, small_cfg)
     assert jeng.supports_packed and teng.supports_packed
     batch = _mk_batch(codes, lengths)
+    t_batch = to_port(batch)
     want_u = jeng.to_host(batch, jeng.align_device(codes, lengths))
     want_p = jeng.to_host(batch, jeng.align_device_packed(codes, lengths))
-    got = teng.to_host(batch, teng.align_device(codes, lengths))
-    got_p = teng.to_host(batch, teng.align_device_packed(codes, lengths))
+    got = teng.to_host(t_batch, teng.align_device(codes, lengths))
+    got_p = teng.to_host(t_batch, teng.align_device_packed(codes, lengths))
     n = codes.shape[0]
     for g in (got, got_p):
         _hosts_equal(want_u, g, n)
@@ -281,7 +287,7 @@ def test_combined_to_host_equals_reference(case, genome, small_cfg):
         assert (int(local[0]), got.cigars[0]) == (
             1175, [("M", 25), ("N", 800), ("M", 25)])
         assert got.cigars[3] == [("M", 25), ("N", 350), ("M", 25)]
-    assert _emitted(teng, batch, got) == _emitted(jeng, batch, want_u)
+    assert _emitted(teng, t_batch, got) == _emitted(jeng, batch, want_u)
 
 
 def test_combined_profile_counts_equal_reference(genome, small_cfg,
@@ -330,8 +336,8 @@ def test_projection_failure_not_counted(genome, small_cfg):
                       pos=zb - 1, score=zb, mapq=zb, x0=zb, x1=zb,
                       ug_equal=torch.ones(B, dtype=torch.bool), nm=zb,
                       diag=zb, n_candidates=zb, tc_count=zb)
-    batch = _mk_batch(np.zeros((B, 50), dtype=np.int8),
-                      np.full(B, 50, dtype=np.int32))
+    batch = to_port(_mk_batch(np.zeros((B, 50), dtype=np.int8),
+                              np.full(B, 50, dtype=np.int32)))
     host = teng.to_host(batch, (res, table))
     assert not host.mapped[0]
     L = small_cfg.max_read_len
@@ -360,11 +366,12 @@ def test_combined_xa_equals_reference(small_cfg):
     codes = np.stack([junction_read, chrA[4000:4050]])
     lengths = np.full(2, 50, dtype=np.int32)
     batch = _mk_batch(codes, lengths)
-    want, got = jeng.align_to_host(batch), teng.align_to_host(batch)
+    t_batch = to_port(batch)
+    want, got = jeng.align_to_host(batch), teng.align_to_host(t_batch)
     _hosts_equal(want, got, 2)
     assert got.xa[0] == "XA:Z:chrA,+1176,25M800N25M,0;"
     assert teng.xa_dropped == jeng.xa_dropped
-    assert _emitted(teng, batch, got) == _emitted(jeng, batch, want)
+    assert _emitted(teng, t_batch, got) == _emitted(jeng, batch, want)
 
 
 # ---------------------------------------------------------------------------
@@ -460,11 +467,12 @@ def test_projected_step_equals_reference(case, genome, small_cfg):
     want_p = jeng.to_host(batch, jeng.align_device_packed(codes, lengths))
     out = teng.align_device_packed(codes, lengths)
     _, pc, pj = out
-    got = teng.to_host(batch, out)
+    t_batch = to_port(batch)
+    got = teng.to_host(t_batch, out)
     n = codes.shape[0]
     _hosts_equal(want_u, got, n)
     _hosts_equal(want_p, got, n)
-    assert _emitted(teng, batch, got) == _emitted(jeng, batch, want_u)
+    assert _emitted(teng, t_batch, got) == _emitted(jeng, batch, want_u)
     over = int(pc.n_sel) > pc.row.shape[0] or int(pj.n_jun) > pj.row.shape[0]
     if case == "parity":
         assert int(pj.n_jun) > 5 and not over
@@ -564,7 +572,7 @@ def test_finalize_core_src_nm_equals_reference(genome, small_cfg):
     got, g_idx = ta.finalize_core(
         t_or, torch.from_numpy(lengths),
         *(torch.from_numpy(arrays[k]) for k in order), teng.didx,
-        teng.sprof, small_cfg,
+        teng.sprof, teng.cfg,
         **{k: torch.from_numpy(arrays[k]) for k in extra})
     np.testing.assert_array_equal(g_idx.numpy(), np.asarray(w_idx))
     for f in ta.AlignResult._fields:

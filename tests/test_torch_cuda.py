@@ -13,15 +13,17 @@ import numpy as np
 import pytest
 import torch
 
-from parasuite_tpu.config import AlignConfig
-from parasuite_tpu.errormodel import flat_score_tensor
-from parasuite_tpu.index import KmerIndex, PackedReference
+from parasuite_tpu_torch.config import AlignConfig
+from parasuite_tpu_torch.errormodel import flat_score_tensor
+from parasuite_tpu_torch.index import KmerIndex, PackedReference
 from parasuite_tpu_torch.ops import aligner as tx
 from parasuite_tpu_torch.ops import cuda_extend, cuda_seed
 from parasuite_tpu_torch.ops.device_index import (DeviceIndex, ScoreParams,
                                                   min_scores_host)
+from parasuite_tpu_torch.testing import SELECT_CASES, select_case_rows
 
 from conftest import sample_reads
+from _torch_helpers import to_port
 
 pytestmark = pytest.mark.cuda
 
@@ -41,6 +43,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def port_ref(tiny_ref):
+    """conftest's reference as the port's own PackedReference."""
+    return to_port(tiny_ref)
 
 
 def _inputs(name, tiny_ref):
@@ -101,6 +109,20 @@ def test_kernels_equal_plain_on_card(cuda, name, tiny_ref):
     assert bool(got[1].any()) and not bool(got[1].all())
 
 
+@pytest.mark.parametrize("n,C", SELECT_CASES)
+def test_select_kernel_equals_plain_at_every_width(cuda, n, C):
+    """Every row width the kernel is built for (n_pad 32 .. 1,024): ties,
+    all-I32MAX rows, one repeated diagonal; tolerance 0. The cases the
+    plain version is held to the JAX package on by test_torch_kernels.py."""
+    cfg = AlignConfig(max_candidates=C)
+    diags = torch.from_numpy(select_case_rows(n)).to(cuda)
+    got = cuda_seed.select_candidates(diags, cfg)
+    want = cuda_seed.select_candidates_plain(diags, cfg)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
 @pytest.mark.parametrize("name", ["bench_L50_W5", "band15_n448"])
 def test_align_batch_on_card_equals_cpu(cuda, name, tiny_ref):
     """align_batch through both kernels equals the all-plain CPU run in all
@@ -150,25 +172,25 @@ def _hosts_equal(want, got):
     assert got.xa == want.xa
 
 
-def test_rescue_engine_on_card_equals_cpu(cuda, tiny_ref):
+def test_rescue_engine_on_card_equals_cpu(cuda, port_ref):
     """Two-tier rescue (k = 8, then k = 6 for the unmapped rows, over the
     256-row cap): to_host on the card equals the CPU engine's, counters
     included."""
-    from parasuite_tpu.io.batch import ReadBatch
+    from parasuite_tpu_torch.io.batch import ReadBatch
     from parasuite_tpu_torch.pipeline.align import AlignerEngine
 
     cfg = AlignConfig(max_read_len=50, batch_size=64, kmer_size=8,
                       max_seeds=4, max_occ=32, max_candidates=8,
                       band_width=3, chrom_spacer=64, rescue_kmer=6)
-    index = KmerIndex.build(tiny_ref.seq, 8)
+    index = KmerIndex.build(port_ref.seq, 8)
     rng = np.random.default_rng(808)
-    codes, lengths, _ = sample_reads(rng, tiny_ref, 600, 36, mutate=5)
+    codes, lengths, _ = sample_reads(rng, port_ref, 600, 36, mutate=5)
     codes[::2] = rng.integers(0, 4, codes[::2].shape)
     codes = np.concatenate([codes, np.full((600, 14), 4, np.int8)], axis=1)
     batch = ReadBatch(codes=codes, lengths=lengths)
     hosts, engines = [], []
     for dev in ("cpu", "cuda"):
-        eng = AlignerEngine(tiny_ref, index, cfg, device=dev)
+        eng = AlignerEngine(port_ref, index, cfg, device=dev)
         hosts.append(eng.align_to_host(batch))
         engines.append(eng)
     _hosts_equal(*hosts)
@@ -180,8 +202,8 @@ def test_rescue_engine_on_card_equals_cpu(cuda, tiny_ref):
 def _combined_world():
     """Combined reference (two transcripts, a genomic duplicate) and 128
     genomic, exonic and junction reads with one substitution each."""
-    from parasuite_tpu.io.batch import ReadBatch
-    from parasuite_tpu.utils.dna import revcomp_codes
+    from parasuite_tpu_torch.io.batch import ReadBatch
+    from parasuite_tpu_torch.utils.dna import revcomp_codes
     from parasuite_tpu_torch.pipeline.combined import (CombinedReference,
                                                        Transcript,
                                                        splice_transcript)
@@ -266,7 +288,7 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(cuda, tiny_ref):
         cuda_seed.select_candidates(diags.t().contiguous().t(), cfg)
     with pytest.raises(ValueError, match="fewer than max_candidates"):
         cuda_seed.select_candidates(diags[:, :4].contiguous(), cfg)
-    with pytest.raises(ValueError, match="row buffer"):
+    with pytest.raises(ValueError, match="widest row"):
         cuda_seed.select_candidates(diags.repeat(1, 10), cfg)
     cand, _ = cuda_seed.select_candidates(diags, cfg)
     with pytest.raises(ValueError, match="lengths int32"):

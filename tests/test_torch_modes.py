@@ -18,6 +18,8 @@ from parasuite_tpu.pipeline import align as jalign
 from parasuite_tpu.pipeline import two_pass as jtwo
 from parasuite_tpu.pipeline.stream import streaming_align as j_stream
 from parasuite_tpu.sim import genome as jgenome
+from parasuite_tpu_torch.io.fastq import \
+    iter_fastq_batches as t_iter_fastq_batches
 from parasuite_tpu_torch.ops import device_index as tdi
 from parasuite_tpu_torch.pipeline import align as talign
 from parasuite_tpu_torch.pipeline import two_pass as ttwo
@@ -25,6 +27,7 @@ from parasuite_tpu_torch.pipeline.stream import streaming_align as t_stream
 from parasuite_tpu_torch.sim import genome as tgenome
 
 from conftest import sample_reads
+from _torch_helpers import to_port
 
 torch.set_num_threads(1)
 
@@ -39,8 +42,11 @@ def _mk_batch(codes, lengths, prefix="r"):
 
 
 def _engines(ref, index, cfg, **kw):
+    """The reference engine on the JAX package's objects, the port's on its
+    own (to_port)."""
     return (jalign.AlignerEngine(ref, index, cfg, **kw),
-            talign.AlignerEngine(ref, index, cfg, device="cpu", **kw))
+            talign.AlignerEngine(to_port(ref), to_port(index), to_port(cfg),
+                                 device="cpu", **kw))
 
 
 def _hosts_equal(want, got, n):
@@ -125,7 +131,8 @@ def test_xa_strings_equal_reference(name, small_cfg):
     jeng, teng = _engines(ref, index, small_cfg, xa_tags=True,
                           xa_limit=limit)
     batch = _mk_batch(codes, lengths)
-    want, got = jeng.align_to_host(batch), teng.align_to_host(batch)
+    t_batch = to_port(batch)
+    want, got = jeng.align_to_host(batch), teng.align_to_host(t_batch)
     _hosts_equal(want, got, codes.shape[0])
     assert any(x is not None for x in got.xa)
     assert teng.xa_dropped == jeng.xa_dropped
@@ -133,7 +140,7 @@ def test_xa_strings_equal_reference(name, small_cfg):
         assert teng.xa_dropped == 2
     if name == "gapped_alternate":
         assert got.xa[0] == "XA:Z:dup,+431,35M1I14M,1;"
-    assert _emitted(teng, batch, got) == _emitted(jeng, batch, want)
+    assert _emitted(teng, t_batch, got) == _emitted(jeng, batch, want)
 
 
 @pytest.mark.parametrize("name", ["repeats", "indels"])
@@ -203,7 +210,8 @@ def test_rescue_equals_reference(name, small_cfg, tiny_ref, tiny_index):
     codes, lengths = _rescue_reads(name, tiny_ref)
     jeng, teng = _engines(tiny_ref, tiny_index, cfg)
     batch = ReadBatch(codes=codes, lengths=lengths)
-    want, got = jeng.align_to_host(batch), teng.align_to_host(batch)
+    want = jeng.align_to_host(batch)
+    got = teng.align_to_host(to_port(batch))
     _hosts_equal(want, got, codes.shape[0])
     assert teng.rescue_mapped == jeng.rescue_mapped >= 3
     assert teng.rescue_overflow == jeng.rescue_overflow
@@ -212,8 +220,9 @@ def test_rescue_equals_reference(name, small_cfg, tiny_ref, tiny_index):
     if name == "over_cap":
         assert teng.rescue_overflow > 0
     # a batch with nothing to rescue resets last_rescue_rows
-    teng.align_to_host(ReadBatch(codes=tiny_ref.seq[None, 100:150].copy(),
-                                 lengths=np.full(1, 50, dtype=np.int32)))
+    teng.align_to_host(to_port(ReadBatch(
+        codes=tiny_ref.seq[None, 100:150].copy(),
+        lengths=np.full(1, 50, dtype=np.int32))))
     assert teng.last_rescue_rows is None
 
 
@@ -225,7 +234,7 @@ def test_rescue_min_scores_equal(small_cfg):
     cfg2 = cfg.replace(kmer_size=6, rescue_kmer=0,
                        max_seeds=max(cfg.rescue_seeds, cfg.max_seeds))
     lens = np.arange(cfg.max_read_len + 1)
-    np.testing.assert_array_equal(tdi.min_score_table(cfg)[lens],
+    np.testing.assert_array_equal(tdi.min_score_table(to_port(cfg))[lens],
                                   jdi.min_scores_host(lens, cfg2))
 
 
@@ -270,7 +279,8 @@ def test_gapped_indel_counts_equal_reference(small_cfg, tiny_ref,
                                      indel=True)
     batch = _mk_batch(codes, lengths)
     got = []
-    for eng in _engines(tiny_ref, tiny_index, small_cfg, xa_tags=True):
+    engines = _engines(tiny_ref, tiny_index, small_cfg, xa_tags=True)
+    for eng, batch in zip(engines, (batch, to_port(batch))):
         L = small_cfg.max_read_len
         ins, dels = np.zeros(L, np.int64), np.zeros(L, np.int64)
         subs = np.zeros((L, 4, 4), np.int64)
@@ -307,14 +317,15 @@ def test_two_pass_api_equals_reference(mode, small_cfg, tiny_ref, tiny_index,
     fq = tmp_path / "reads.fastq"
     write_fastq(fq, [f"p{i}" for i in range(80)], codes, lengths)
 
-    def source():
-        return iter_fastq_batches(fq, cfg.batch_size, cfg.max_read_len)
+    def source(read=iter_fastq_batches):
+        return read(fq, cfg.batch_size, cfg.max_read_len)
 
+    sources = (source, lambda: source(t_iter_fastq_batches))
     results = []
-    for eng, api in zip(_engines(tiny_ref, tiny_index, cfg, **kw),
-                        (jtwo, ttwo)):
+    for eng, api, src in zip(_engines(tiny_ref, tiny_index, cfg, **kw),
+                             (jtwo, ttwo), sources):
         w = _Buf()
-        prof = api.two_pass_align(eng, source, sam_writer=w,
+        prof = api.two_pass_align(eng, src, sam_writer=w,
                                   profile_path=tmp_path / f"{api.__name__}.p")
         results.append((prof, bytes(w.data),
                         (tmp_path / f"{api.__name__}.p").read_bytes()))

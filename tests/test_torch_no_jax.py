@@ -1,8 +1,8 @@
-"""The port never imports jax: whole index + twopass, combine + twopass +
-align --xa --rescue-kmer, and simulate / benchmark / cluster / sort /
-convert plus a combined align on the projected step leave it out of
-sys.modules, and no source file of the port (or chip_smoke.py) imports
-it."""
+"""The port never imports jax nor anything of parasuite_tpu: whole index +
+twopass, combine + twopass + align --xa --rescue-kmer, and simulate /
+benchmark / cluster / sort / convert plus a combined align on the projected
+step leave both out of sys.modules, and no source file of the port (nor
+chip_smoke.py, nor the card tests) imports either."""
 
 import os
 import re
@@ -13,6 +13,11 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent.parent
+# the end of every subprocess run: neither jax nor the JAX package came in
+ALONE = (
+    "foreign = sorted(m for m in sys.modules if m.split('.')[0] in "
+    "('jax', 'jaxlib', 'parasuite_tpu'))\n"
+    "assert not foreign, f'imported {foreign[:5]}'\n")
 
 
 def test_index_and_twopass_run_without_jax(tmp_path, tiny_ref):
@@ -38,7 +43,7 @@ def test_index_and_twopass_run_without_jax(tmp_path, tiny_ref):
         "assert main(['index', 'ref.fa', 'idx', *flags]) == 0\n"
         "assert main(['twopass', 'idx', 'r.fastq', 'out.sam', "
         "'--learned-gaps', '--device', 'cpu', *flags]) == 0\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        f"{ALONE}"
         "print('no-jax-ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env["PYTHONPATH"] = str(REPO)
@@ -88,7 +93,7 @@ def test_combine_twopass_xa_rescue_run_without_jax(tmp_path, tiny_ref):
         "assert main(['index', 'ref.fa', 'idx', *flags]) == 0\n"
         "assert main(['align', 'idx', 'r.fastq', 'x.sam', '--xa', "
         "'--rescue-kmer', '6', '--device', 'cpu', *flags]) == 0\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        f"{ALONE}"
         "print('no-jax-ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env["PYTHONPATH"] = str(REPO)
@@ -147,7 +152,7 @@ def test_host_tools_and_projected_combined_run_without_jax(tmp_path,
         "c = run('align', 'cidx', 'c.fastq', 'c.sam', '--device', 'cpu',"
         " *flags)\n"
         "assert c['packed_batches'] == 3 and c['packed_overflow'] == 0, c\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        f"{ALONE}"
         "print('no-jax-ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env["PYTHONPATH"] = str(REPO)
@@ -161,10 +166,14 @@ def test_host_tools_and_projected_combined_run_without_jax(tmp_path,
 
 
 def test_no_source_file_imports_jax():
-    pattern = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.MULTILINE)
+    """No `import` / `from` of jax or of parasuite_tpu (parasuite_tpu_torch
+    is the port itself), anywhere in a line: a docstring recipe counts."""
+    pattern = re.compile(
+        r"\b(import|from)\s+(jax|parasuite_tpu)([\s.,]|$)", re.MULTILINE)
     files = sorted((REPO / "parasuite_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
-    assert len(files) > 10
+    files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
+              REPO / "tests" / "_torch_helpers.py"]
+    assert len(files) > 30
     offenders = [str(f.relative_to(REPO)) for f in files
                  if pattern.search(f.read_text())]
     assert offenders == []

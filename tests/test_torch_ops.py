@@ -28,6 +28,7 @@ from parasuite_tpu_torch.ops.device_index import DeviceIndex, ScoreParams
 from parasuite_tpu_torch.ops.profile_update import profile_counts_batch
 
 from conftest import sample_reads
+from _torch_helpers import to_port
 
 torch.set_num_threads(1)
 B = 32
@@ -155,6 +156,7 @@ def test_stages_equal_jax(case, tiny_ref, tiny_index, small_cfg):
                                                small_cfg)
     jd, js, td, ts = _state(ref, index, cfg, s)
     f = _jax_fns(cfg)
+    t_cfg = to_port(cfg)
     ms = jdi.min_scores_host(lengths, cfg)
     tcodes, tlens, tms = (torch.from_numpy(codes), torch.from_numpy(lengths),
                           torch.from_numpy(ms))
@@ -164,24 +166,25 @@ def test_stages_equal_jax(case, tiny_ref, tiny_index, small_cfg):
     _eq(t_or, j_or, "orient")
 
     j_diags = f["seed"](j_or, lengths, jd)
-    t_diags = tx.seed_diagonals(t_or, tlens, td, cfg)
+    t_diags = tx.seed_diagonals(t_or, tlens, td, t_cfg)
     _eq(t_diags, j_diags, "seed")
 
     j_cd, j_cv = f["select"](j_diags)
-    t_cd, t_cv = cuda_seed.select_candidates_plain(t_diags, cfg)
+    t_cd, t_cv = cuda_seed.select_candidates_plain(t_diags, t_cfg)
     _eq(t_cd, j_cd, "select diag")
     _eq(t_cv, j_cv, "select valid")
 
     j_ext = f["extend"](j_or, lengths, j_cd, jd, js)
-    t_ext = cuda_extend.extend_candidates_plain(t_or, tlens, t_cd, td, ts, cfg)
+    t_ext = cuda_extend.extend_candidates_plain(t_or, tlens, t_cd, td, ts,
+                                                t_cfg)
     for name, t, j in zip(["dp_score", "dp_j", "ug_score", "ug_j"], t_ext,
                           j_ext):
         _eq(t, j, f"extend {name}")
 
     j_fin = f["finalize"](j_or, lengths, ms, j_cd, j_cv, *j_ext, jd, js)
-    t_fin = tx.finalize(t_or, tlens, tms, t_cd, t_cv, *t_ext, td, ts, cfg)
+    t_fin = tx.finalize(t_or, tlens, tms, t_cd, t_cv, *t_ext, td, ts, t_cfg)
     j_res = f["align"](jd, js, codes, lengths, ms)
-    t_res = tx.align_batch(td, ts, tcodes, tlens, tms, cfg)
+    t_res = tx.align_batch(td, ts, tcodes, tlens, tms, t_cfg)
     assert t_res._fields == j_res._fields
     for field in j_res._fields:
         _eq(getattr(t_fin, field), getattr(j_fin, field), f"finalize {field}")
@@ -191,7 +194,7 @@ def test_stages_equal_jax(case, tiny_ref, tiny_index, small_cfg):
     j_c = f["counts"](jd, codes, lengths, j_res.mapped, j_res.strand,
                       j_res.pos, j_res.ug_equal)
     t_c = profile_counts_batch(td, tcodes, tlens, t_res.mapped, t_res.strand,
-                               t_res.pos, t_res.ug_equal, cfg)
+                               t_res.pos, t_res.ug_equal, t_cfg)
     _eq(t_c, j_c, "profile counts")
 
 
@@ -201,6 +204,7 @@ def test_batch_size_independence(tiny_ref, tiny_index, small_cfg):
                                                tiny_index, small_cfg)
     _, _, td, ts = _state(ref, index, cfg, s)
     ms = torch.from_numpy(jdi.min_scores_host(lengths, cfg))
+    cfg = to_port(cfg)
     tcodes, tlens = torch.from_numpy(codes), torch.from_numpy(lengths)
     full = tx.align_batch(td, ts, tcodes, tlens, ms, cfg)
     half = tx.align_batch(td, ts, tcodes[:16], tlens[:16], ms[:16], cfg)
@@ -214,6 +218,7 @@ def test_score_params_keep_l_rows(small_cfg):
     """A score tensor longer than max_read_len is cut to L rows, the layout
     the extension's (strand * L + cycle) table offset assumes."""
     s = flat_score_tensor(small_cfg, small_cfg.max_read_len + 7)
+    small_cfg = to_port(small_cfg)
     sp = ScoreParams.from_tensor(s, small_cfg, "cpu")
     assert sp.s_fwd.shape == sp.s_comp.shape == (small_cfg.max_read_len, 5, 5)
     np.testing.assert_array_equal(sp.mapq_sub.numpy(), jdi._mapq_table())

@@ -27,6 +27,7 @@ from parasuite_tpu_torch.pipeline import clusters as tclusters
 from parasuite_tpu_torch.pipeline.stream import streaming_align as t_stream
 
 from conftest import sample_reads
+from _torch_helpers import to_port
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
@@ -39,9 +40,15 @@ def cfg(small_cfg):
 
 
 @pytest.fixture(scope="module")
-def engines(tiny_ref, tiny_index, cfg):
+def port(tiny_ref, tiny_index, cfg):
+    """(reference, index, config) as the port's own objects."""
+    return to_port(tiny_ref), to_port(tiny_index), to_port(cfg)
+
+
+@pytest.fixture(scope="module")
+def engines(tiny_ref, tiny_index, cfg, port):
     return (jalign.AlignerEngine(tiny_ref, tiny_index, cfg),
-            talign.AlignerEngine(tiny_ref, tiny_index, cfg, device="cpu"))
+            talign.AlignerEngine(*port, device="cpu"))
 
 
 def _reads(ref, n=N_READS, seed=31):
@@ -165,12 +172,13 @@ def test_cli_align_and_twopass_byte_identical(tmp_path, tiny_ref, fastq):
         assert (td / name).read_bytes() == (jd / name).read_bytes(), name
 
 
-def _helper_case(name, engines, tiny_ref, cfg):
+def _helper_case(name, engines, tiny_ref, cfg, t_cfg):
     """-> (reference result, port result) of one copied host helper."""
     rng = np.random.default_rng(77)
     if name == "min_scores_host":
         lens = rng.integers(0, 51, 500)
-        return (jdi.min_scores_host(lens, cfg), tdi.min_scores_host(lens, cfg))
+        return (jdi.min_scores_host(lens, cfg),
+                tdi.min_scores_host(lens, t_cfg))
     if name == "tc_count_from_cigar":
         ref_seq = rng.integers(0, 5, 400).astype(np.int8)
         got, want = [], []
@@ -198,27 +206,28 @@ def _helper_case(name, engines, tiny_ref, cfg):
     if name == "host_traceback":
         want, got = [], []
         for k, b in enumerate(rows):
-            args = (tiny_ref.seq, teng.s_tensor, teng.s_comp, cfg, om[k],
-                    int(lengths[b]), int(strand[k]), int(diag[k]))
-            want.append(jalign.host_traceback(*args))
-            got.append(talign.host_traceback(*args))
+            args = (om[k], int(lengths[b]), int(strand[k]), int(diag[k]))
+            head = (tiny_ref.seq, teng.s_tensor, teng.s_comp)
+            want.append(jalign.host_traceback(*head, cfg, *args))
+            got.append(talign.host_traceback(*head, t_cfg, *args))
         return want, got
-    args = (tiny_ref.seq, teng.s_tensor, teng.s_comp, cfg, om, lengths[rows],
-            strand, diag)
-    return (jalign.host_tracebacks_batch(*args),
-            talign.host_tracebacks_batch(*args))
+    head = (tiny_ref.seq, teng.s_tensor, teng.s_comp)
+    args = (om, lengths[rows], strand, diag)
+    return (jalign.host_tracebacks_batch(*head, cfg, *args),
+            talign.host_tracebacks_batch(*head, t_cfg, *args))
 
 
 @pytest.mark.parametrize("helper", ["host_traceback", "host_tracebacks_batch",
                                     "tc_count_from_cigar", "min_scores_host"])
-def test_host_helper_copies_equal_reference(helper, engines, tiny_ref, cfg):
-    want, got = _helper_case(helper, engines, tiny_ref, cfg)
+def test_host_helper_copies_equal_reference(helper, engines, tiny_ref, cfg,
+                                            port):
+    want, got = _helper_case(helper, engines, tiny_ref, cfg, port[2])
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert np.array_equal(g, w) if isinstance(g, np.ndarray) else g == w
 
 
-def test_engine_refuses_what_it_cannot_run(tiny_ref, tiny_index, cfg):
+def test_engine_refuses_what_it_cannot_run(tiny_ref, port):
     """No silent fallback: a missing CUDA device is an error, and combined
     mode refuses rescue as the reference does."""
     from parasuite_tpu_torch.pipeline.combined import (CombinedEngine,
@@ -227,30 +236,33 @@ def test_engine_refuses_what_it_cannot_run(tiny_ref, tiny_index, cfg):
     if torch.cuda.is_available():
         pytest.skip("checks the no-CUDA error path")
     with pytest.raises(RuntimeError, match="cuda"):
-        talign.AlignerEngine(tiny_ref, tiny_index, cfg, device="cuda")
+        talign.AlignerEngine(*port, device="cuda")
     genome = {name: tiny_ref.seq[tiny_ref.starts[i]:tiny_ref.ends[i]]
               for i, name in enumerate(tiny_ref.names)}
-    comb = CombinedReference.build(genome, [], spacer=cfg.chrom_spacer)
+    _, t_index, t_cfg = port
+    comb = CombinedReference.build(genome, [], spacer=t_cfg.chrom_spacer)
     with pytest.raises(ValueError, match="rescue_kmer"):
-        CombinedEngine(comb, tiny_index, cfg.replace(rescue_kmer=6),
+        CombinedEngine(comb, t_index, t_cfg.replace(rescue_kmer=6),
                        device="cpu")
 
 
 @pytest.mark.parametrize("mode", ["xa", "rescue"])
-def test_xa_and_rescue_engines_run_on_cpu(mode, tiny_ref, tiny_index, cfg):
+def test_xa_and_rescue_engines_run_on_cpu(mode, tiny_ref, port):
     """The XA and rescue engines build and run on CPU tensors: XA strings
     for a read with an alternate, rescued reads for 36 bp reads the k = 8
     pass leaves unmapped."""
-    from parasuite_tpu.io.batch import ReadBatch
+    from parasuite_tpu_torch.io.batch import ReadBatch
 
+    t_ref, t_index, t_cfg = port
     rng = np.random.default_rng(12)
     if mode == "xa":
-        eng = talign.AlignerEngine(tiny_ref, tiny_index, cfg, xa_tags=True,
+        eng = talign.AlignerEngine(t_ref, t_index, t_cfg, xa_tags=True,
                                    device="cpu")
         codes, lengths, _ = sample_reads(rng, tiny_ref, 32, 50, mutate=6)
     else:
-        eng = talign.AlignerEngine(tiny_ref, tiny_index,
-                                   cfg.replace(rescue_kmer=6), device="cpu")
+        eng = talign.AlignerEngine(t_ref, t_index,
+                                   t_cfg.replace(rescue_kmer=6),
+                                   device="cpu")
         codes, lengths, _ = sample_reads(rng, tiny_ref, 64, 36, mutate=5)
         codes = np.concatenate(
             [codes, np.full((64, 14), 4, dtype=np.int8)], axis=1)

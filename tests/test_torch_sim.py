@@ -14,6 +14,8 @@ from parasuite_tpu.sim import generate as jg
 from parasuite_tpu_torch.sim import generate as tg
 from parasuite_tpu_torch.sim import threefry as tf
 
+from _torch_helpers import to_port
+
 SEEDS = [0, 7, -5, 123456]
 SHAPES = [(1,), (7,), (1000,), (13, 50)]
 
@@ -113,7 +115,7 @@ def test_simulate_reads_equals_jax(mode, n, sim_world):
     ref, cfg, probs = sim_world
     kw = _mode_kwargs(mode, ref, probs)
     want = jg.simulate_reads(ref, n, 50, cfg, seed=11, **kw)
-    got = tg.simulate_reads(ref, n, 50, cfg, seed=11, **kw)
+    got = tg.simulate_reads(to_port(ref), n, 50, to_port(cfg), seed=11, **kw)
     for w, g, name in zip(want[:2], got[:2], ("codes", "lengths")):
         assert g.dtype == w.dtype, name
         _eq(g, w, name)
@@ -131,15 +133,16 @@ def test_simulate_reads_equals_jax(mode, n, sim_world):
 
 def test_simulate_quality_and_binding_sites_equal_jax(sim_world):
     ref = sim_world[0]
+    t_ref = to_port(ref)
     for n, L, seed in ((1, 50, 0), (37, 36, 5), (1000, 100, 11)):
         _eq(tg.simulate_quality(n, L, seed=seed),
             jg.simulate_quality(n, L, seed=seed), "simulate_quality")
     for n_sites, seed in ((1, 0), (20, 3), (200, 9)):
-        _eq(tg.simulate_binding_sites(ref, n_sites, 50, seed=seed),
+        _eq(tg.simulate_binding_sites(t_ref, n_sites, 50, seed=seed),
             jg.simulate_binding_sites(ref, n_sites, 50, seed=seed),
             "simulate_binding_sites")
     for L in (36, 51):
-        _eq(tg._valid_starts(ref, L), jg._valid_starts(ref, L),
+        _eq(tg._valid_starts(t_ref, L), jg._valid_starts(ref, L),
             "_valid_starts")
     for rate in (None, 0.01, np.linspace(0, 0.01, 30),
                  np.linspace(0, 0.01, 80)):
