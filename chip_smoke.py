@@ -61,12 +61,41 @@ each prints one line, and any failure raises (exit code != 0):
  12. tools: `cluster` on phase 6's SAM and BAM, `sort` of both and
      `convert` of the sorted BAM to SAM (TOOLS_PINNED), and `convert` of
      the SAM to BAM and back to the same bytes.
-Phases 7-9 and 11 run through the port's CLI with --device cuda and check
-the exact kernel launch counts of their runs; phases 10 and 12 launch none.
+ 13. dist_step: the data-parallel step (parallel/dist_align.py) over the
+     machine's cards and over the first card given twice, on one batch of
+     65,536 bench reads; AlignResult and the int64 counts array-equal to
+     the engine's single-device step; one launch of each kernel per mesh
+     device and call;
+ 14. dist_file: `dist-align --host-index h --n-hosts 2` for both hosts (in
+     this process) on all 262,144 reads and `merge-shards`; the merged SAM
+     and .errorprofile have the JAX CLI's digests (DIST_PINNED: those of
+     its one-process `align` and of its twopass profile);
+ 15. dist_coord: `dist-align --coordinator` as two processes of the port's
+     CLI that share the card (torch.distributed, the counts summed in-step
+     by all_reduce; gloo, since NCCL takes one process per card), then as
+     one process; each merged to the same two digests; the launches of the
+     processes' JSON lines sum to the batch count; reads/s printed as what
+     it is, two processes on one card;
+ 16. shards: the chromosome-sharded index (parallel/shards.py) on a world
+     of two uniform 50 Mbp chromosomes (shards_world) and 65,536 reads of
+     50 bp: build_sharded_index over two shards, make_sharded_step on a
+     1 x 2 grid of the first card given twice; the outputs have the SHA-256
+     of the JAX package's sharded step (SHARDS_PINNED), and against the
+     port's replicated align_batch on the full 100 Mbp index no read is
+     lost and every read the replicated path maps is equal in every field
+     (the replicated candidate list saturates on this reference, so the
+     sharded step maps a few hundred reads more: parallel/shards.py); two
+     launches of each kernel a call; ms per call beside the replicated
+     step's;
+ 17. scaling: `benchmark --scaling` over the machine's cards, and its
+     refusal (exit code 2) of one card more than the machine has;
+ 18. entry: parasuite_tpu_torch.entry's entry() step and its dry run.
+Phases 7-9, 11 and 13-18 run on the card and check the exact kernel launch
+counts of their runs; phases 10 and 12 launch none.
 
-Then one JSON line on the kernels (launches summed over phases 5-12), a
-check that neither jax nor the JAX package was imported, and as the last
-line
+Then one JSON line on the kernels (launches summed over phases 5-18, those
+of phase 15's processes included), a check that neither jax nor the JAX
+package was imported, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The worlds are pure functions of the seeds, so the digests can be
@@ -119,6 +148,21 @@ Phases 10-12 (after the commands above):
     python -m parasuite_tpu.cli sort W/all.bam W/sorted.bam
     python -m parasuite_tpu.cli convert W/sorted.bam W/sorted_bam.sam
 
+Phases 14-16:
+
+    python -m parasuite_tpu.cli dist-align W/idx W/all.fastq W/dist \\
+        --host-index 0 --n-hosts 2 --batch-size 4096 FLAGS    (and 1)
+    python -m parasuite_tpu.cli merge-shards W/idx W/dist W/dist.sam \\
+        --n-hosts 2 --pg-cl smoke --profile-out W/dist.errorprofile FLAGS
+
+and for SHARDS_PINNED, in Python with the JAX package on a CPU with two
+virtual devices (--xla_force_host_platform_device_count=2): seqs, reads =
+chip_smoke.shards_world(); parasuite_tpu.parallel.shards'
+build_sharded_index(seqs, 2, cfg) and make_sharded_step(cfg, make_mesh2(1,
+2)) with cfg = FLAGS' AlignConfig, flat scores and min_scores_host at
+length 50, over the reads in chunks of 4,096; chip_smoke.shards_digest of
+the concatenated outputs at n = 16,384 and n = 65,536.
+
 xa_dropped is the `align.done` event of W/xa/log; the JAX CLI prints no
 rescue counters, so RESCUE_PINNED's are the JAX engines' `rescue_mapped`
 and `rescue_overflow` summed over the run's two engines (read by wrapping
@@ -161,6 +205,10 @@ RESCUE_BATCH = 16_384       # rescue output depends on the batch (its cap)
 COMB_GENOME = 8_000_000     # tools/bench_combined.py's world
 COMB_TX = 400
 COMB_DRAWN = 262_144        # reads drawn before spacer-straddlers drop
+SHARD_CHROM = 50_000_000    # the shards world: two such chromosomes
+N_SHARD_READS = 65_536
+SHARD_FIELDS = ("mapped", "strand", "chrom", "local_pos", "score", "mapq",
+                "x0", "x1", "ug_equal", "nm", "shard")
 FLAGS = ["--max-read-len", "50", "--kmer-size", "12", "--max-candidates",
          "8", "--max-occ", "16"]
 
@@ -265,6 +313,34 @@ TOOLS_PINNED = {
     "sorted_bam.sam":
         "2edcecd6d6db0c28e2d1145ad7712d383960139c2de7c56d8f8249f6deec0353",
 }
+# phases 13-16: the JAX CLI's file-side run over two hosts, merged, has the
+# digests of its one-process `align` and of its twopass profile (AT_SCALE);
+# the JAX package's sharded step on the shards world (commands in the
+# docstring)
+DIST_PINNED = {"sam": AT_SCALE["all.sam"],
+               "errorprofile": AT_SCALE["all.bam.errorprofile"]}
+SHARDS_PINNED = {
+    "first_16384":
+        "10c3dfaec7fddaa7a5e98ae06f4c7c004ba75f141508c6ab18f0542d83be6d4e",
+    "all_65536":
+        "2f487bacd1b76f7dbd789a6eaf9913d8d22f86dd40f8ad1c9992935080ae4e3d",
+}
+# what one process of a coordinator run executes: the port's CLI, its
+# stdout held back until the check that neither jax nor the JAX package
+# came in has passed
+COORD_CHILD = """
+import contextlib, io, sys
+from parasuite_tpu_torch.cli import main
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc = main(sys.argv[1:])
+foreign = sorted(m for m in sys.modules
+                 if m.split('.')[0] in ('jax', 'jaxlib', 'parasuite_tpu'))
+if foreign:
+    raise SystemExit(f'the process imported {foreign[:5]}')
+sys.stdout.write(buf.getvalue())
+sys.exit(rc)
+"""
 PACKED_KEYS = ("packed_batches", "packed_entries", "packed_junctions",
                "packed_overflow")
 # published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
@@ -439,6 +515,29 @@ def write_combined_world(out_dir) -> int:
     write_fastq(out / "xa.fastq", names[:N_PIN], codes[:N_PIN],
                 lengths[:N_PIN])
     return n
+
+
+def shards_world():
+    """The world of the shards phase -> (seqs, reads int8 [N_SHARD_READS,
+    READ_LEN]): two uniform random chromosomes of SHARD_CHROM bases
+    (default_rng(5) and default_rng(6)), and reads by draw_reads on each
+    (seeds 7 and 8), interleaved: read 2i is from chrS0, read 2i + 1 from
+    chrS1."""
+    seqs = {f"chrS{i}": np.random.default_rng(5 + i).integers(
+                0, 4, SHARD_CHROM, dtype=np.int8) for i in range(2)}
+    halves = [draw_reads(seqs[f"chrS{i}"], N_SHARD_READS // 2, READ_LEN,
+                         7 + i)[0] for i in range(2)]
+    return seqs, np.stack(halves, axis=1).reshape(N_SHARD_READS, READ_LEN)
+
+
+def shards_digest(out: dict, n: int) -> str:
+    """SHA-256 over the first n reads of the sharded step's output (a dict
+    of numpy arrays): every field of SHARD_FIELDS in that order, as int32."""
+    h = hashlib.sha256()
+    for k in SHARD_FIELDS:
+        h.update(np.ascontiguousarray(
+            np.asarray(out[k][:n]).astype(np.int32)).tobytes())
+    return h.hexdigest()
 
 
 def accuracy(sam_path, truth: dict) -> dict:
@@ -1263,6 +1362,346 @@ def tools_phase(gpu: str) -> None:
             seconds=round(time.perf_counter() - t0, 3), runs=out, gpu=gpu)
 
 
+def _add(*runs: dict) -> dict:
+    """Launch counts of several runs, summed per kernel."""
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+def dist_step_phase(engine, gpu: str) -> dict:
+    """make_dist_align_step over the machine's cards and over the first
+    card given twice, on one BATCH of the bench reads: AlignResult and the
+    int64 counts array-equal to the engine's single-device step; one launch
+    of each kernel per mesh device and call."""
+    import torch
+
+    from parasuite_tpu_torch.io.fastq import read_fastq
+    from parasuite_tpu_torch.ops.device_index import min_scores_host
+    from parasuite_tpu_torch.parallel import make_dist_align_step, make_mesh
+
+    batch = read_fastq(WORK / "all.fastq", READ_LEN)
+    codes, lengths = batch.codes[:BATCH], batch.lengths[:BATCH]
+    ms = min_scores_host(lengths, engine.cfg)
+    want = engine.align_device(codes, lengths)
+    want_counts = engine.profile_counts_device(codes, lengths, want)
+    ms_single = _median_ms(lambda: engine.profile_counts_device(
+        codes, lengths, engine.align_device(codes, lengths)), reps=5)
+    card0 = torch.device("cuda", 0)
+    meshes = {"machine_cards": make_mesh(),
+              "card0_twice": make_mesh(devices=[card0] * 2)}
+    runs, report = [], {}
+    for name, mesh in meshes.items():
+        step = make_dist_align_step(engine.cfg, mesh)
+        _reset_counters()
+        got, counts = step(engine.didx, engine.sprof, codes, lengths, ms)
+        torch.cuda.synchronize()
+        launches = _counters()
+        _expect_launches(launches, mesh.size, f"dist_step {name}")
+        if counts.dtype != torch.int64 or not torch.equal(
+                counts, want_counts.to(torch.int64)):
+            raise AssertionError(f"dist_step {name}: summed counts differ "
+                                 f"from the single-device step's")
+        for f in want._fields:
+            if not torch.equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"dist_step {name}: {f} differs from "
+                                     f"the single-device step's")
+        runs.append(launches)
+        report[name] = {
+            "devices": [str(d) for d in mesh.devices], "launches": launches,
+            "ms_per_call": _median_ms(
+                lambda: step(engine.didx, engine.sprof, codes, lengths, ms),
+                reps=5)}
+    phase("dist_step", reads=BATCH, meshes=report,
+          single_device_step_ms=ms_single, mapped=int(want.mapped.sum()),
+          counts_total=int(want_counts.sum()), max_abs_err=0,
+          launches=_add(*runs), gpu=gpu)
+    return _add(*runs)
+
+
+def _merge_and_pin(label: str, prefix: str, n_hosts: int) -> dict:
+    """merge-shards of WORK/prefix -> the digests of the merged SAM and
+    .errorprofile, which must be DIST_PINNED's."""
+    m = _cli_json(["merge-shards", str(WORK / "idx"), str(WORK / prefix),
+                   str(WORK / f"{prefix}.sam"), "--n-hosts", str(n_hosts),
+                   "--pg-cl", "smoke", "--profile-out",
+                   str(WORK / f"{prefix}.errorprofile"), *FLAGS])
+    if m["records"] != N_READS:
+        raise AssertionError(f"{label}: merged {m['records']} records for "
+                             f"{N_READS} reads")
+    got = {ext: sha256(WORK / f"{prefix}.{ext}") for ext in DIST_PINNED}
+    bad = {k: {"got": got[k], "jax": DIST_PINNED[k]} for k in got
+           if got[k] != DIST_PINNED[k]}
+    if bad:
+        raise AssertionError(f"{label}: differs from the JAX package's: "
+                             f"{bad}")
+    return {**got, "profiled": m["profiled"]}
+
+
+def dist_file_phase(gpu: str) -> dict:
+    """File-side multi-host mode in this process: `dist-align --host-index h
+    --n-hosts 2` for both hosts on all bench reads, then `merge-shards`."""
+    _reset_counters()
+    t0 = time.perf_counter()
+    hosts = [_cli_json(["dist-align", str(WORK / "idx"),
+                        str(WORK / "all.fastq"), str(WORK / "dist"),
+                        "--host-index", str(h), "--n-hosts", "2",
+                        "--batch-size", str(BATCH), *FLAGS, "--device",
+                        "cuda"]) for h in range(2)]
+    t_align = time.perf_counter() - t0
+    launches = _counters()
+    merged = _merge_and_pin("dist_file", "dist", 2)
+    phase("dist_file", launches=launches, hosts=hosts, merged=merged,
+          align_seconds=round(t_align, 3),
+          seconds=round(time.perf_counter() - t0, 3),
+          reads_per_s_both_hosts_in_turn=round(N_READS / t_align, 1),
+          gpu=gpu)
+    if sum(h["records"] for h in hosts) != N_READS:
+        raise AssertionError(f"dist_file: hosts wrote {hosts}")
+    _expect_launches(launches, _n_batches(N_READS, BATCH), "dist_file")
+    return launches
+
+
+def _coordinator_run(prefix: str, n_proc: int, timeout: int = 600) -> list:
+    """n_proc processes of the port's CLI as one torch.distributed group on
+    this machine's card(s) -> their JSON lines. A process that fails or
+    outlasts the timeout ends the run, and none is left behind."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    try:
+        for pid in range(n_proc):
+            argv = [sys.executable, "-c", COORD_CHILD, "dist-align",
+                    str(WORK / "idx"), str(WORK / "all.fastq"),
+                    str(WORK / prefix), "--coordinator", f"127.0.0.1:{port}",
+                    "--num-processes", str(n_proc), "--process-id", str(pid),
+                    "--batch-size", str(BATCH), *FLAGS, "--device", "cuda"]
+            procs.append(subprocess.Popen(argv, cwd=REPO,
+                                          stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True))
+        lines = []
+        for pid, p in enumerate(procs):
+            out, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise AssertionError(f"dist_coord: process {pid} of {n_proc} "
+                                     f"exited {p.returncode}:\n{err[-3000:]}")
+            lines.append(json.loads(out.strip().splitlines()[-1]))
+        return lines
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def dist_coord_phase(gpu: str) -> dict:
+    """torch.distributed mode: two processes of the port's CLI that share
+    the card (`--coordinator`, in-step all_reduce of the counts), then one
+    process alone on the same code path, each merged and pinned. The two
+    processes' reads/s is what it is — two processes on one card, not a
+    scaling number."""
+    import torch
+
+    n_b = _n_batches(N_READS, BATCH)
+    runs, report = [], {}
+    for n_proc in (2, 1):
+        t0 = time.perf_counter()
+        lines = _coordinator_run(f"coord{n_proc}", n_proc)
+        wall = time.perf_counter() - t0
+        launches = _add(*[ln["launches"] for ln in lines])
+        # every process has a card of its own -> NCCL; else they share: gloo
+        backend = "nccl" if n_proc <= torch.cuda.device_count() else "gloo"
+        for ln in lines:
+            if (ln["mode"], ln["backend"]) != ("torch.distributed", backend) \
+                    or not ln["device"].startswith("cuda"):
+                raise AssertionError(f"dist_coord: {ln}, want {backend} on "
+                                     f"the card")
+        if sum(ln["records"] for ln in lines) != N_READS:
+            raise AssertionError(f"dist_coord: processes wrote {lines}")
+        _expect_launches(launches, n_b, f"dist_coord x{n_proc}")
+        report[f"processes_{n_proc}"] = {
+            "lines": lines, "launches": launches, "backend": backend,
+            "merged": _merge_and_pin("dist_coord", f"coord{n_proc}", n_proc),
+            "wall_seconds_with_start_up": round(wall, 3),
+            "reads_per_s": round(N_READS / max(ln["seconds"]
+                                               for ln in lines), 1),
+            "slowest_process_reads_per_s": min(ln["reads_per_second"]
+                                               for ln in lines)}
+        runs.append(launches)
+    phase("dist_coord", **report, launches=_add(*runs),
+          note="two processes share one card: not a scaling number",
+          gpu=gpu)
+    return _add(*runs)
+
+
+def shards_phase(gpu: str) -> dict:
+    """The chromosome-sharded index at 100 Mbp: build_sharded_index over two
+    shards, make_sharded_step on a 1 x 2 grid of the first card given twice,
+    N_SHARD_READS reads in one call. Pinned to the JAX package's sharded
+    step (SHARDS_PINNED), and held to the port's replicated align_batch on
+    the full index by the module's contract: the replicated candidate list
+    saturates on this reference (n_candidates == 2C on nearly every read),
+    so the sharded step maps a superset of reads; every read the replicated
+    path maps has every field equal (position through full.locate)."""
+    import torch
+
+    from parasuite_tpu_torch.config import AlignConfig
+    from parasuite_tpu_torch.errormodel.scoring import flat_score_tensor
+    from parasuite_tpu_torch.index import KmerIndex
+    from parasuite_tpu_torch.ops.aligner import align_batch
+    from parasuite_tpu_torch.ops.device_index import (DeviceIndex,
+                                                      ScoreParams,
+                                                      min_scores_host)
+    from parasuite_tpu_torch.parallel.mesh import make_mesh2
+    from parasuite_tpu_torch.parallel.shards import (build_sharded_index,
+                                                     make_sharded_step)
+
+    t0 = time.perf_counter()
+    cfg = AlignConfig(max_read_len=READ_LEN, kmer_size=12,
+                      batch_size=N_SHARD_READS, max_candidates=8, max_occ=16)
+    seqs, reads = shards_world()
+    t_world = time.perf_counter() - t0
+    sharded, full = build_sharded_index(seqs, 2, cfg)
+    t_build = time.perf_counter() - t0 - t_world
+    card0 = torch.device("cuda", 0)
+    sprof = ScoreParams.from_tensor(flat_score_tensor(cfg, READ_LEN), cfg,
+                                    card0)
+    lengths = np.full(N_SHARD_READS, READ_LEN, dtype=np.int32)
+    ms = min_scores_host(lengths, cfg)
+    step = make_sharded_step(cfg, make_mesh2(1, 2, devices=[card0] * 2))
+    slabs = sharded.slabs(cfg)
+    _reset_counters()
+    out = step(slabs, sharded.orig_chrom, sprof, reads, lengths, ms)
+    torch.cuda.synchronize()
+    launches = _counters()
+    _expect_launches(launches, 2, "shards: one call of the sharded step")
+    got = {k: v.cpu().numpy() for k, v in out.items()}
+    digests = {"first_16384": shards_digest(got, N_PIN),
+               "all_65536": shards_digest(got, N_SHARD_READS)}
+
+    # the replicated path on the full 100 Mbp index, same reads
+    didx = DeviceIndex.from_host(
+        full, KmerIndex.build(full.seq, cfg.kmer_size), card0)
+    args = tuple(torch.from_numpy(x).to(card0) for x in (reads, lengths, ms))
+    _reset_counters()
+    rep = align_batch(didx, sprof, *args, cfg)
+    torch.cuda.synchronize()
+    rep_launches = _counters()
+    _expect_launches(rep_launches, 1, "shards: the replicated step")
+    rep = {f: getattr(rep, f).cpu().numpy() for f in rep._fields}
+    m = rep["mapped"]
+    ci, local = full.locate(rep["pos"])
+    want = {"strand": rep["strand"], "chrom": ci, "local_pos": local,
+            "score": rep["score"], "mapq": rep["mapq"], "x0": rep["x0"],
+            "x1": rep["x1"], "ug_equal": rep["ug_equal"], "nm": rep["nm"]}
+    differing = {k: int((got[k][m] != v[m]).sum()) for k, v in want.items()}
+    lost = int((m & ~got["mapped"]).sum())
+    ms_sharded = _median_ms(lambda: step(slabs, sharded.orig_chrom, sprof,
+                                         reads, lengths, ms), reps=5)
+    # timed as the sharded step is: host arrays in, result on the card
+    ms_replicated = _median_ms(lambda: align_batch(
+        didx, sprof, *(torch.from_numpy(x).to(card0)
+                       for x in (reads, lengths, ms)), cfg), reps=5)
+    phase("shards", reads=N_SHARD_READS, ref_len=int(full.total_len),
+          slab_bytes_per_shard={k: int(getattr(sharded, k)[0].nbytes)
+                                for k in ("ref_seq", "bucket_starts",
+                                          "positions")},
+          world_seconds=round(t_world, 3), build_seconds=round(t_build, 3),
+          launches=launches, replicated_launches=rep_launches,
+          digests=digests, mapped=int(got["mapped"].sum()),
+          replicated_mapped=int(m.sum()), lost_vs_replicated=lost,
+          mapped_only_by_sharding=int((~m & got["mapped"]).sum()),
+          replicated_saturated=int((rep["n_candidates"]
+                                    == 2 * cfg.max_candidates).sum()),
+          fields_differing_on_replicated_mapped=differing,
+          winners_by_shard=np.bincount(got["shard"][got["mapped"]],
+                                       minlength=2).tolist(),
+          ms_per_call_sharded=ms_sharded,
+          ms_per_call_replicated=ms_replicated,
+          seconds=round(time.perf_counter() - t0, 3), gpu=gpu)
+    bad = {k: {"got": digests[k], "jax": SHARDS_PINNED[k]} for k in digests
+           if digests[k] != SHARDS_PINNED[k]}
+    if bad:
+        raise AssertionError(f"shards: differs from the JAX package's "
+                             f"sharded step: {bad}")
+    if lost or any(differing.values()):
+        raise AssertionError(f"shards: against the replicated path lost "
+                             f"{lost} reads, fields differing {differing}")
+    return _add(launches, rep_launches)
+
+
+def scaling_phase(gpu: str) -> dict:
+    """`benchmark --scaling` over the machine's cards (on one card the
+    efficiency is 1.0 by construction: the only point is its own base), and
+    its refusal of one card more than the machine has."""
+    import torch
+
+    from parasuite_tpu_torch.cli import main as cli
+
+    n_cards = torch.cuda.device_count()
+    asked = ",".join(str(n) for n in range(1, n_cards + 1))
+    _reset_counters()
+    rep = _cli_json(["benchmark", str(WORK / "idx"), "--scaling", asked,
+                     "--n-reads", str(BATCH), "--batch-size", str(BATCH),
+                     *FLAGS, "--device", "cuda"])
+    launches = _counters()
+    # per mesh of n cards: one warm-up call and three timed, n launches each
+    _expect_launches(launches, 4 * sum(range(1, n_cards + 1)), "scaling")
+    if rep["backend"] != "cuda" or rep["points"][0]["efficiency"] != 1.0 \
+            or [p["n_devices"] for p in rep["points"]] != list(
+                range(1, n_cards + 1)):
+        raise AssertionError(f"scaling: report {rep}")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), \
+            contextlib.redirect_stdout(io.StringIO()):
+        rc = cli(["benchmark", str(WORK / "idx"), "--scaling",
+                  f"1,{n_cards + 1}", "--n-reads", str(BATCH), *FLAGS,
+                  "--device", "cuda"])
+    phase("scaling", report=rep, launches=launches,
+          note=("one card: efficiency 1.0 by construction"
+                if n_cards == 1 else f"{n_cards} cards"),
+          one_card_too_many={"asked": f"1,{n_cards + 1}", "exit_code": rc,
+                             "message": err.getvalue().strip()}, gpu=gpu)
+    if rc == 0 or f"have {n_cards}" not in err.getvalue() \
+            or _counters() != launches:
+        raise AssertionError(f"scaling: --scaling 1,{n_cards + 1} on "
+                             f"{n_cards} card(s) exited {rc}: "
+                             f"{err.getvalue()!r}")
+    return launches
+
+
+def entry_phase(gpu: str) -> dict:
+    """parasuite_tpu_torch.entry on the card: entry()'s step on its example
+    arguments, and the 1-D then 2-D dry run over the machine's cards."""
+    import torch
+
+    from parasuite_tpu_torch import entry
+
+    _reset_counters()
+    fn, args = entry.entry()
+    tensors = [t for a in args for t in (
+        [a] if isinstance(a, torch.Tensor) else
+        [getattr(a, f) for f in a.__dataclass_fields__])]
+    if not all(t.is_cuda for t in tensors):
+        raise AssertionError("entry: example arguments not on the card")
+    res = fn(*args)
+    torch.cuda.synchronize()
+    n_mapped, n = int(res.mapped.sum()), int(res.mapped.shape[0])
+    if not (0.9 * n <= n_mapped <= n):
+        raise AssertionError(f"entry: {n_mapped} of {n} reads mapped")
+    n_cards = torch.cuda.device_count()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        entry.dryrun_multichip(n_cards)
+    launches = _counters()
+    # entry's step, the 1-D step on n cards, the 2-D step on all n cards
+    _expect_launches(launches, 1 + 2 * n_cards, "entry")
+    phase("entry", mapped=n_mapped, reads=n, launches=launches,
+          dryrun=buf.getvalue().strip().splitlines(), gpu=gpu)
+    return launches
+
+
 def main() -> int:
     gpu = environment()
     build()
@@ -1285,6 +1724,9 @@ def main() -> int:
     sim_phase(gpu)
     runs.append(benchmark_phase(gpu))
     tools_phase(gpu)
+    runs += [dist_step_phase(engine, gpu), dist_file_phase(gpu),
+             dist_coord_phase(gpu), shards_phase(gpu), scaling_phase(gpu),
+             entry_phase(gpu)]
     for k in kernels:
         k["launches"] = sum(r[k["name"]] for r in runs)
     foreign = sorted(m for m in sys.modules

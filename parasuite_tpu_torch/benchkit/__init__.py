@@ -1,7 +1,7 @@
 """Benchmark helpers of the port: accuracy against simulation truth
-(evaluate.py) and the throughput timer (timing.py). The weak-scaling
-report (the reference's benchkit/scaling.py) needs the data-parallel step
-and is not ported yet."""
+(evaluate.py), the throughput timer (timing.py) and the weak-scaling
+report of the data-parallel step (scaling.py, imported where it is used:
+it pulls in parallel/)."""
 
 from parasuite_tpu_torch.benchkit.evaluate import (  # noqa: F401
     EvalReport, evaluate_against_truth)

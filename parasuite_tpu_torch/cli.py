@@ -1,19 +1,23 @@
 """Command-line entry of the port: index, combine, align, twopass,
-simulate, benchmark, cluster, sort, convert.
+simulate, benchmark, cluster, dist-align, merge-shards, sort, convert.
 
 Same subcommands, flags, outputs and stdout JSON keys as parasuite_tpu.cli
 (parasuite_tpu/cli.py:94-569; the files are byte-identical for the same
-inputs, and either package reads the other's index files). align, twopass
-and benchmark take --device (default cuda); a device that is asked for and
-missing is an error, and the CLI never moves to the CPU on its own. align
+inputs, and either package reads the other's index files and merges the
+other's shards). align, twopass, benchmark and dist-align take --device
+(default cuda); a device that is asked for and missing is an error, and the
+CLI never moves to the CPU on its own. align
 and twopass take --xa, --rescue-kmer and combined genome+transcriptome
 indexes (an index prefix with a .combined.json beside it).
 
 index, sort and convert are numpy and the port's native host library
 (native/), no framework. simulate uses the port's simulator
 (sim/generate.py, the same reads bit for bit); cluster its copies
-of the cluster caller. Not ported yet (the next slice, ROADMAP Queue 1):
-benchmark --scaling, dist-align and merge-shards.
+of the cluster caller. benchmark --scaling measures the data-parallel step
+over 1..N of the machine's cards and fails when asked for more than it has.
+dist-align runs one host's shard of a multi-host run, file-side
+(--host-index/--n-hosts) or as one process of a torch.distributed group
+(--coordinator); merge-shards merges either mode's shards (host-only).
 
     python -m parasuite_tpu_torch.cli index ref.fa idx --kmer-size 12
     python -m parasuite_tpu_torch.cli simulate idx reads.fastq --n-reads 10000
@@ -23,6 +27,13 @@ benchmark --scaling, dist-align and merge-shards.
     python -m parasuite_tpu_torch.cli cluster idx out.sam clusters.tsv
     python -m parasuite_tpu_torch.cli combine ref.fa exons.tsv cidx
     python -m parasuite_tpu_torch.cli align cidx reads.fastq out.sam --xa
+    python -m parasuite_tpu_torch.cli dist-align idx reads.fastq run \\
+        --host-index 0 --n-hosts 2
+    python -m parasuite_tpu_torch.cli dist-align idx reads.fastq run \\
+        --coordinator host0:9876 --num-processes 2 --process-id 0
+    python -m parasuite_tpu_torch.cli merge-shards idx run out.sam \\
+        --n-hosts 2 --profile-out out.errorprofile
+    python -m parasuite_tpu_torch.cli benchmark idx --scaling 1,2,4
 """
 
 from __future__ import annotations
@@ -262,13 +273,9 @@ def cmd_benchmark(args) -> int:
     from parasuite_tpu_torch.pipeline.align import fetch_host
     from parasuite_tpu_torch.sim.generate import simulate_reads
 
-    if args.scaling:
-        print("benchmark: --scaling needs the data-parallel step "
-              "(parallel/, benchkit/scaling.py), which is the next slice "
-              "of the port (ROADMAP Queue 1); it never falls back to one "
-              "device", file=sys.stderr)
-        return 2
     cfg = _cfg_from_args(args)
+    if args.scaling:
+        return _benchmark_scaling(args, cfg)
     engine = _load_engine(args, cfg)
     codes, lengths, truth = simulate_reads(engine.ref, args.n_reads,
                                            args.read_len, cfg, seed=cfg.seed,
@@ -294,6 +301,37 @@ def cmd_benchmark(args) -> int:
     pos = np.concatenate([r.pos for r in host])
     rep = evaluate_against_truth(truth, mapped, strand, pos)
     print(json.dumps(timer.report(**rep.to_dict(), tool="benchmark")))
+    return 0
+
+
+def _benchmark_scaling(args, cfg) -> int:
+    """benchmark --scaling: the weak-scaling report of the data-parallel
+    step over the first n of the machine's devices of --device's type, for
+    each n asked. Asking for more devices than there are is an error
+    (exit 2) before anything is measured."""
+    from parasuite_tpu_torch.benchkit.scaling import measure_scaling
+    from parasuite_tpu_torch.parallel.mesh import make_mesh
+    from parasuite_tpu_torch.pipeline.align import resolve_device
+    from parasuite_tpu_torch.sim.generate import simulate_reads
+
+    counts = [int(x) for x in args.scaling.split(",")]
+    dev = resolve_device(args.device)
+    # the CPU is one device; the machine's CUDA devices are make_mesh's own
+    # default
+    devices = None if dev.type == "cuda" and dev.index is None else [dev]
+    try:
+        make_mesh(max(counts), devices=devices)
+    except ValueError as e:
+        print(f"benchmark --scaling {args.scaling}: {e}", file=sys.stderr)
+        return 2
+    engine = _load_engine(args, cfg)
+    codes, lengths, _ = simulate_reads(engine.ref, max(counts) * args.n_reads,
+                                       args.read_len, cfg, seed=cfg.seed,
+                                       tc_rate=args.tc_rate)
+    rep = measure_scaling(engine.didx, engine.sprof, codes, lengths, cfg,
+                          counts, per_device_reads=args.n_reads,
+                          devices=devices)
+    print(json.dumps({"tool": "benchmark", **rep}))
     return 0
 
 
@@ -363,6 +401,85 @@ def cmd_cluster(args) -> int:
     write_clusters(args.out, clusters)
     print(json.dumps({"tool": "cluster", "alignments": int(pos.shape[0]),
                       "clusters": len(clusters)}))
+    return 0
+
+
+def _launch_counts() -> dict:
+    from parasuite_tpu_torch.ops import cuda_extend, cuda_seed
+
+    return {"select_candidates": cuda_seed.launches,
+            "extend_candidates": cuda_extend.launches}
+
+
+def cmd_dist_align(args) -> int:
+    """One host's shard of a multi-host run.
+
+    Two modes:
+      * file-side (default): independent per-host process, count matrices
+        merged by merge-shards (parallel.multihost);
+      * --coordinator HOST:PORT --num-processes N --process-id I: one
+        process of a torch.distributed group, profile counts summed in-step
+        across processes by all_reduce (parallel.distributed; NCCL when
+        every process has a card of its own, gloo otherwise). Shard and
+        manifest layout is identical, so merge-shards works on either
+        mode's output.
+    """
+    from parasuite_tpu_torch.utils.runlog import RunLog
+
+    cfg = _cfg_from_args(args)
+    log = RunLog(args.log) if args.log else RunLog()
+    if args.coordinator:
+        if args.num_processes is None or args.process_id is None:
+            print("dist-align: --coordinator needs --num-processes and "
+                  "--process-id", file=sys.stderr)
+            return 2
+        import torch.distributed as dist
+
+        from parasuite_tpu_torch.parallel.distributed import (
+            initialize, run_distributed_host)
+
+        args.device = str(initialize(args.coordinator, args.num_processes,
+                                     args.process_id, args.device))
+        engine = _load_engine(args, cfg)
+        n, _counts, n_prof, secs = run_distributed_host(
+            engine, args.fastq, args.out_prefix, log=log)
+        backend = dist.get_backend()
+        dist.destroy_process_group()
+        print(json.dumps({"tool": "dist-align", "host": args.process_id,
+                          "n_hosts": args.num_processes, "records": n,
+                          "profiled": n_prof, "mode": "torch.distributed",
+                          "backend": backend, "device": str(engine.device),
+                          "launches": _launch_counts(),
+                          "seconds": round(secs, 3),
+                          "reads_per_second": round(n / max(secs, 1e-9), 1)}))
+        return 0
+    if args.host_index is None or args.n_hosts is None:
+        print("dist-align: --host-index/--n-hosts required (or --coordinator "
+              "--num-processes --process-id for torch.distributed mode)",
+              file=sys.stderr)
+        return 2
+    from parasuite_tpu_torch.parallel.multihost import run_host_shard
+
+    engine = _load_engine(args, cfg)
+    n, _counts, n_prof = run_host_shard(
+        engine, args.fastq, args.out_prefix, args.host_index, args.n_hosts,
+        resume=args.resume, log=log)
+    print(json.dumps({"tool": "dist-align", "host": args.host_index,
+                      "n_hosts": args.n_hosts, "records": n,
+                      "profiled": n_prof, "device": str(engine.device)}))
+    return 0
+
+
+def cmd_merge_shards(args) -> int:
+    from parasuite_tpu_torch.index import PackedReference
+    from parasuite_tpu_torch.parallel.multihost import merge_host_outputs
+
+    ref = PackedReference.load(args.index_prefix)
+    n, profile = merge_host_outputs(
+        ref, args.out_prefix, args.out, args.n_hosts,
+        profile_out=args.profile_out, command_line=_command_line(args))
+    print(json.dumps({"tool": "merge-shards", "records": n,
+                      "profiled": profile.n_reads if profile else 0}))
     return 0
 
 
@@ -456,7 +573,8 @@ def build_parser() -> argparse.ArgumentParser:
                        help="simulate+align, report accuracy & speed")
     p.add_argument("index_prefix")
     p.add_argument("--scaling", help="comma-separated device counts for a "
-                   "weak-scaling report (not ported yet: exits non-zero)")
+                   "weak-scaling efficiency report (config 5); more than "
+                   "the machine has is an error")
     p.add_argument("--n-reads", dest="n_reads", type=int, default=10000)
     p.add_argument("--read-len", dest="read_len", type=int, default=50)
     p.add_argument("--tc-rate", dest="tc_rate", type=float, default=None)
@@ -473,6 +591,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cluster-min-reads", dest="cluster_min_reads", type=int)
     _add_cfg_flags(p)
     p.set_defaults(fn=cmd_cluster)
+
+    p = sub.add_parser("dist-align", help="align one host's shard "
+                       "(multi-host round-robin batches)")
+    p.add_argument("index_prefix")
+    p.add_argument("fastq")
+    p.add_argument("out_prefix")
+    p.add_argument("--host-index", dest="host_index", type=int)
+    p.add_argument("--n-hosts", dest="n_hosts", type=int)
+    p.add_argument("--coordinator", help="torch.distributed coordinator "
+                   "HOST:PORT (one process per device, counts summed "
+                   "in-step)")
+    p.add_argument("--num-processes", dest="num_processes", type=int)
+    p.add_argument("--process-id", dest="process_id", type=int)
+    p.add_argument("--profile", help=".errorprofile for profile-aware scoring")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--log")
+    p.add_argument("--device", default="cuda",
+                   help="torch device for the align step (default cuda; "
+                        "cpu runs the kernels' plain PyTorch versions)")
+    _add_cfg_flags(p)
+    p.set_defaults(fn=cmd_dist_align)
+
+    p = sub.add_parser("merge-shards", help="merge per-host SAM shards + "
+                       "profile counts deterministically")
+    p.add_argument("index_prefix")
+    p.add_argument("out_prefix")
+    p.add_argument("out")
+    p.add_argument("--n-hosts", dest="n_hosts", type=int, required=True)
+    p.add_argument("--profile-out", dest="profile_out")
+    p.add_argument("--pg-cl", dest="pg_cl", default=None,
+                   help="override the @PG CL: value (pin it so merges at "
+                   "different host counts are byte-identical)")
+    _add_cfg_flags(p)
+    p.set_defaults(fn=cmd_merge_shards)
 
     p = sub.add_parser("sort", help="coordinate-sort SAM/BAM (unmapped last)")
     p.add_argument("infile")

@@ -46,9 +46,9 @@ class DeviceIndex:
     def from_host(cls, ref: PackedReference, index: KmerIndex,
                   device) -> "DeviceIndex":
         if ref.total_len > np.iinfo(np.int32).max:
-            raise ValueError("packed reference exceeds int32; the chromosome-"
-                             "sharded index is not ported yet (ROADMAP Queue "
-                             "1 item 3)")
+            raise ValueError("packed reference exceeds int32; partition it "
+                             "by chromosome with parallel.shards."
+                             "build_sharded_index")
         return cls.from_numpy(ref.seq, index.bucket_starts, index.positions,
                               ref.starts, ref.ends, device)
 

@@ -132,12 +132,21 @@ def test_benchmark_counts_equal(world):
 
 
 def test_benchmark_scaling_exits_nonzero(world, capsys):
-    """--scaling needs the data-parallel slice: a non-zero exit and a
-    message naming it, never a one-device run."""
+    """--scaling with more devices than there are (the CPU is one): a
+    non-zero exit and a message naming the count, never replicas on one
+    device measured as if they were devices. With a count the machine has
+    it prints the JAX CLI's report shape."""
     rc, js = _run(tcli, "benchmark", world / "idx", "--scaling", "1,2",
                   "--n-reads", "64", *FLAGS, "--device", "cpu")
     assert rc != 0 and js is None
-    assert "next slice" in capsys.readouterr().err
+    assert "requested 2 devices, have 1" in capsys.readouterr().err
+    rc, js = _run(tcli, "benchmark", world / "idx", "--scaling", "1",
+                  "--n-reads", "64", *FLAGS, "--device", "cpu")
+    assert rc == 0 and js["tool"] == "benchmark" and js["mode"] == "weak"
+    assert js["backend"] == "cpu" and js["per_device_reads"] == 64
+    assert [p["n_devices"] for p in js["points"]] == [1]
+    assert sorted(js["points"][0]) == ["efficiency", "n_devices",
+                                       "per_device", "reads_per_s"]
 
 
 def test_cluster_copies_equal_reference(world):

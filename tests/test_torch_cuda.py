@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version; align_batch, align_batch_with_candidates, a rescue engine
 and CombinedEngine on the card against the same run on CPU tensors; the
-wrappers' refusals. Every test needs an NVIDIA GPU and skips elsewhere.
+data-parallel step and the chromosome-sharded step on the card (one card
+given twice, so each kernel launches twice a call) against the same steps
+on CPU devices; the wrappers' refusals. Every test needs an NVIDIA GPU and skips elsewhere.
 
 This file imports no jax, so it also runs on a machine with a card and no
 JAX installed (PARASUITE_TEST_TPU=1 keeps conftest.py from importing jax):
@@ -274,6 +276,77 @@ def test_combined_projected_step_on_card_equals_cpu(cuda, cap):
     assert counters[0] == counters[1]
     assert counters[0][3] == (1 if cap < 1 else 0)
     assert any(len(hosts[0].cigars[i]) > 1 for i in range(128))
+
+
+@pytest.mark.parametrize("n_replicas", [1, 2])
+def test_dist_step_on_card_equals_cpu(cuda, n_replicas, tiny_ref):
+    """make_dist_align_step over the card (given once and twice) equals the
+    step over CPU devices in every AlignResult field and in the int64
+    counts; each kernel launches once per replica and call; a mesh of the
+    machine's cards refuses one card more than it has."""
+    from parasuite_tpu_torch.parallel import make_dist_align_step, make_mesh
+
+    cfg, didx, sprof, codes, lengths = _inputs("bench_L50_W5", tiny_ref)
+    ms = min_scores_host(lengths, cfg)
+    card0 = torch.device("cuda", 0)
+    want, want_counts = make_dist_align_step(
+        cfg, make_mesh(devices=["cpu"] * n_replicas))(
+            didx, sprof, codes, lengths, ms)
+    step = make_dist_align_step(cfg, make_mesh(devices=[card0] * n_replicas))
+    on_card = (_to(didx, card0), _to(sprof, card0))
+    for _ in range(2):     # the second call finds its replicas in place
+        n_sel, n_ext = cuda_seed.launches, cuda_extend.launches
+        got, counts = step(*on_card, codes, lengths, ms)
+        assert (cuda_seed.launches - n_sel, cuda_extend.launches - n_ext) \
+            == (n_replicas, n_replicas)
+        assert counts.dtype == torch.int64 and counts.device == card0
+        assert torch.equal(counts.cpu(), want_counts)
+        for field in want._fields:
+            assert torch.equal(getattr(got, field).cpu(),
+                               getattr(want, field)), field
+    assert int(want_counts.sum()) > 0
+    n_cards = torch.cuda.device_count()
+    assert make_mesh().size == n_cards
+    with pytest.raises(ValueError, match=f"have {n_cards}"):
+        make_mesh(n_cards + 1)
+
+
+def test_sharded_step_on_card_equals_cpu(cuda):
+    """make_sharded_step on a 1 x 2 grid of the card equals the same step
+    on CPU devices in every field, with two launches of each kernel a
+    call."""
+    from parasuite_tpu_torch.parallel.mesh import make_mesh2
+    from parasuite_tpu_torch.parallel.shards import (build_sharded_index,
+                                                     make_sharded_step)
+
+    cfg = AlignConfig(max_read_len=50, batch_size=64, kmer_size=8,
+                      max_seeds=4, max_occ=32, max_candidates=8,
+                      band_width=3, chrom_spacer=64)
+    rng = np.random.default_rng(600)
+    seqs = {f"chr{i}": rng.integers(0, 4, 1500 + 700 * i).astype(np.int8)
+            for i in range(5)}
+    sharded, full = build_sharded_index(seqs, 2, cfg)
+    codes, lengths, _ = sample_reads(np.random.default_rng(601), full, 64,
+                                     50, mutate=2)
+    ms = min_scores_host(lengths, cfg)
+    s = flat_score_tensor(cfg, cfg.max_read_len)
+    card0 = torch.device("cuda", 0)
+    outs = {}
+    for dev in ("cpu", card0):
+        step = make_sharded_step(cfg, make_mesh2(1, 2, devices=[dev] * 2))
+        n_sel, n_ext = cuda_seed.launches, cuda_extend.launches
+        outs[dev] = step(sharded.slabs(cfg), sharded.orig_chrom,
+                         ScoreParams.from_tensor(s, cfg, dev), codes,
+                         lengths, ms)
+        want = 0 if dev == "cpu" else 2
+        assert (cuda_seed.launches - n_sel, cuda_extend.launches - n_ext) \
+            == (want, want)
+    for k, w in outs["cpu"].items():
+        g = outs[card0][k]
+        assert g.device == card0 and g.dtype == w.dtype, k
+        assert torch.equal(g.cpu(), w), k
+    assert int(outs["cpu"]["mapped"].sum()) >= 60
+    assert set(outs["cpu"]["shard"].tolist()) >= {0, 1}
 
 
 def test_wrappers_refuse_what_the_kernels_cannot_take(cuda, tiny_ref):

@@ -1,11 +1,14 @@
 """The port never imports jax nor anything of parasuite_tpu: whole index +
-twopass, combine + twopass + align --xa --rescue-kmer, and simulate /
+twopass, combine + twopass + align --xa --rescue-kmer, simulate /
 benchmark / cluster / sort / convert plus a combined align on the projected
-step leave both out of sys.modules, and no source file of the port (nor
-chip_smoke.py, nor the card tests) imports either."""
+step, and the multi-device layer (dist-align in both modes, merge-shards,
+benchmark --scaling, the entry points) leave both out of sys.modules, and
+no source file of the port (nor chip_smoke.py, nor the card tests) imports
+either."""
 
 import os
 import re
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -163,6 +166,73 @@ def test_host_tools_and_projected_combined_run_without_jax(tmp_path,
     recs = [line for line in (tmp_path / "sorted.sam").read_text()
             .splitlines() if not line.startswith("@")]
     assert len(recs) == 96
+
+
+def test_multi_device_layer_runs_without_jax(tmp_path, tiny_ref):
+    """dist-align file-side over two hosts and as a torch.distributed group
+    of one, merge-shards on both, benchmark --scaling, and the entry points
+    (entry(), the 1-D and 2-D dry run on explicit CPU devices): no jax in
+    sys.modules, and both merges give the same bytes."""
+    from parasuite_tpu.io.fasta import write_fasta
+
+    write_fasta(tmp_path / "ref.fa",
+                {name: tiny_ref.seq[tiny_ref.starts[i]:tiny_ref.ends[i]]
+                 for i, name in enumerate(tiny_ref.names)})
+    flags = ["--max-read-len", "50", "--kmer-size", "8", "--band-width", "3",
+             "--batch-size", "32"]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    code = (
+        "import contextlib, io, json, sys\n"
+        "import torch\n"
+        "from parasuite_tpu_torch.cli import main\n"
+        "from parasuite_tpu_torch import entry\n"
+        f"flags = {flags!r}\n"
+        "def run(*argv, rc=0):\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        assert main(list(argv)) == rc, argv\n"
+        "    lines = buf.getvalue().strip().splitlines()\n"
+        "    return json.loads(lines[-1]) if lines else None\n"
+        "run('index', 'ref.fa', 'idx', *flags)\n"
+        "run('simulate', 'idx', 's.fastq', '--n-reads', '96', *flags)\n"
+        "for h in ('0', '1'):\n"
+        "    run('dist-align', 'idx', 's.fastq', 'two', '--host-index', h,"
+        " '--n-hosts', '2', '--device', 'cpu', *flags)\n"
+        "m = run('merge-shards', 'idx', 'two', 'two.sam', '--n-hosts', '2',"
+        " '--pg-cl', 'x', '--profile-out', 'two.errorprofile', *flags)\n"
+        "assert m['records'] == 96, m\n"
+        "c = run('dist-align', 'idx', 's.fastq', 'grp', '--coordinator',"
+        f" '127.0.0.1:{port}', '--num-processes', '1', '--process-id', '0',"
+        " '--device', 'cpu', *flags)\n"
+        "assert c['mode'] == 'torch.distributed' and c['backend'] == 'gloo', c\n"
+        "run('merge-shards', 'idx', 'grp', 'grp.sam', '--n-hosts', '1',"
+        " '--pg-cl', 'x', '--profile-out', 'grp.errorprofile', *flags)\n"
+        "for ext in ('.sam', '.errorprofile'):\n"
+        "    assert open('two' + ext, 'rb').read() == "
+        "open('grp' + ext, 'rb').read(), ext\n"
+        "s = run('benchmark', 'idx', '--scaling', '1', '--n-reads', '32',"
+        " '--device', 'cpu', *flags)\n"
+        "assert s['backend'] == 'cpu' and s['points'][0]['efficiency'] == 1.0\n"
+        "run('benchmark', 'idx', '--scaling', '1,2', '--n-reads', '32',"
+        " '--device', 'cpu', *flags, rc=2)\n"
+        "fn, args = entry.entry('cpu')\n"
+        "assert int(fn(*args).mapped.sum()) > 200\n"
+        "entry.dryrun_multichip(4, devices=[torch.device('cpu')] * 4)\n"
+        f"{ALONE}"
+        "print('no-jax-ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "1"
+    p = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-2000:]
+    lines = p.stdout.strip().splitlines()
+    assert lines[-1] == "no-jax-ok"
+    assert lines[-3].startswith("dryrun_multichip(4): 1-D data ok")
+    assert lines[-2].startswith("dryrun_multichip 2-D (2x2 data x index): ok")
+    assert "requested 2 devices, have 1" in p.stderr
 
 
 def test_no_source_file_imports_jax():
