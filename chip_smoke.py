@@ -90,10 +90,35 @@ each prints one line, and any failure raises (exit code != 0):
  17. scaling: `benchmark --scaling` over the machine's cards, and its
      refusal (exit code 2) of one card more than the machine has;
  18. entry: parasuite_tpu_torch.entry's entry() step and its dry run.
-Phases 7-9, 11 and 13-18 run on the card and check the exact kernel launch
-counts of their runs; phases 10 and 12 launch none.
+ 19. profile_e2e: tools/torch_profile_e2e.py on the files of phases 6, 7
+     and 9 — where FASTQ -> SAM time goes (per-thread busy time, to_host and
+     emit split further), the device-busy share of the wall from CUDA
+     events around every step, bytes up and down per batch — in plain mode,
+     with --xa and in combined mode; the probed SAMs are the unprobed ones;
+ 20. sweep_lengths: tools/torch_sweep_lengths.py, adaptive placement at 36,
+     50, 75 and 100 bp, 65,536 reads each (SWEEP_PINNED);
+ 21. rescue_sens: sensitivity at 36 bp with rescue_kmer 11 on phase 8's
+     reads against their truth (RESCUE_SENS_PINNED);
+ 22. genome: tools/torch_bench_genome.py at full width — the 200 Mbp
+     five-chromosome genome at k = 13, batch 65,536, 262,144 reads, and the
+     51 Mbp world of phase 7 at k = 12: index census, seeding-blind reads,
+     accuracy overall and on X0 == 1 (GENOME_PINNED), resident bytes, device
+     reads/s;
+ 23. scale: tools/torch_scale_run.py at 524,288 reads in its own process —
+     simulate, twopass to BAM, a SIGKILL mid-run, --resume, sort, cluster;
+     the resumed bytes equal the control's and the cluster count is the JAX
+     CLI's (SCALE_PINNED);
+ 24. shards_k15: phase 16's world again at k = 15, where the replicated
+     candidate list saturates on no read, so the sharded and the replicated
+     step must agree in all nine fields on all 65,536 reads
+     (SHARDS_K15_PINNED).
+Phase 4 also holds the select kernel's shared-memory path (rows of 2,048 and
+4,096 entries) to the plain version, as the select_wide line.
+Phases 7-9, 11, 13-22 and 24 run on the card and check the exact kernel
+launch counts of their runs; phases 10 and 12 launch none, and phase 23's
+launches happen in its own subprocesses and are not counted here.
 
-Then one JSON line on the kernels (launches summed over phases 5-18, those
+Then one JSON line on the kernels (launches summed over phases 5-24, those
 of phase 15's processes included), a check that neither jax nor the JAX
 package was imported, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -163,6 +188,11 @@ build_sharded_index(seqs, 2, cfg) and make_sharded_step(cfg, make_mesh2(1,
 length 50, over the reads in chunks of 4,096; chip_smoke.shards_digest of
 the concatenated outputs at n = 16,384 and n = 65,536.
 
+The pins of phases 19-24 come from the JAX package's own tools on the
+CPU; the comment above SWEEP_PINNED names the function behind each. The
+worlds are the port's (tools/_torch_bench.py, sim/), which give the JAX
+simulator's reads bit for bit.
+
 xa_dropped is the `align.done` event of W/xa/log; the JAX CLI prints no
 rescue counters, so RESCUE_PINNED's are the JAX engines' `rescue_mapped`
 and `rescue_overflow` summed over the run's two engines (read by wrapping
@@ -191,12 +221,15 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 WORK = REPO / ".smoke"
+# the measurement scripts beside the package: the bench world (one copy,
+# tools/_torch_bench.py) and the tools the later phases run
+sys.path.insert(0, str(REPO / "tools"))
 
-REF_LEN = 20_000_000        # bench.REF_LEN
-READ_LEN = 50
-N_READS = 262_144           # 4 batches of 65,536
-N_PIN = 16_384              # reads pinned to the JAX package's digests
-N_ALL_N = 256
+import _torch_bench as tb                                   # noqa: E402
+from _torch_bench import (N_PIN, READ_LEN, REF_LEN,         # noqa: E402,F401
+                          bench_chrom, draw_reads, gpu_line, write_world)
+
+N_READS = tb.SMOKE_READS    # 262,144: 4 batches of 65,536
 BATCH = 65_536              # bench.BATCH_TPU
 PIN_BATCH = 4_096
 N_MODE_READS = 131_072      # reads of the xa and rescue phases
@@ -325,6 +358,66 @@ SHARDS_PINNED = {
     "all_65536":
         "2f487bacd1b76f7dbd789a6eaf9913d8d22f86dd40f8ad1c9992935080ae4e3d",
 }
+# ... and at k = 15 (the same commands with kmer_size=15), where its
+# replicated step saturates no candidate list
+SHARDS_K15_PINNED = {
+    "first_16384":
+        "2c6868de39301627990b61b5146dcd1151b630072abd534df2db40fb766c1a6a",
+    "all_65536":
+        "306da0a77c2e365bc3be3ff1ee9d0e11712042e8f92cebf2e1b2b0aa331438f0",
+}
+# phases 19-24: the measurement scripts beside the package (tools/torch_*.py)
+# on the card, pinned to the JAX package's numbers on the same reads,
+# computed on the CPU with the original tools' own functions:
+# tools/sweep_lengths.py's loop body (bench.run_throughput, adaptive
+# placement, 65,536 reads a length), tools/bench_genome.py's run_world
+# (chr22_like(seed=22) at k = 12 with 65,536 reads; multi_chrom(200_000_000,
+# 5) at k = 13 with 262,144), tools/bench_rescue.py's engine_accuracy (the
+# rescue phase's reads and truth, rescue_kmer 11, batch RESCUE_BATCH), and
+# the cluster count of tools/scale_run.py's stages through the JAX CLI
+# (index, simulate_fastq, twopass, sort, cluster) at PARASUITE_SCALE_READS=
+# 524288. Fractions are the tools' own, rounded to 4 places. The census
+# numbers also stand in BENCH_GENOME_r05.json (they depend on no hardware).
+SWEEP_PINNED = {
+    36: {"stride_eff": 4, "sensitivity": 0.9759, "precision": 1.0,
+         "n_unmapped": 1576, "n_mismapped": 2},
+    50: {"stride_eff": 6, "sensitivity": 0.9917, "precision": 1.0,
+         "n_unmapped": 546, "n_mismapped": 1},
+    75: {"stride_eff": 10, "sensitivity": 0.9969, "precision": 1.0,
+         "n_unmapped": 202, "n_mismapped": 1},
+    100: {"stride_eff": 14, "sensitivity": 0.9988, "precision": 1.0,
+          "n_unmapped": 80, "n_mismapped": 0},
+}
+N_SWEEP_READS = 65_536
+GENOME_PINNED = {
+    "chr22_class_51Mbp": {
+        "kmers_total": 40468619, "buckets_nonzero": 14940169,
+        "bucket_max": 3600, "buckets_over_max_occ": 19731,
+        "reads_all_seeds_dropped": 656, "sensitivity": 0.9595,
+        "precision": 0.986, "sensitivity_unique": 0.9904},
+    "multi_chrom_200Mbp": {
+        "kmers_total": 199380030, "buckets_nonzero": 63210192,
+        "bucket_max": 2087, "buckets_over_max_occ": 79754,
+        "reads_all_seeds_dropped": 1491, "sensitivity": 0.9565,
+        "precision": 0.9937, "sensitivity_unique": 0.9952},
+}
+GENOME_EXACT = ("kmers_total", "buckets_nonzero", "bucket_max",
+                "buckets_over_max_occ", "reads_all_seeds_dropped")
+GENOME_FRACTIONS = ("sensitivity", "precision", "sensitivity_unique")
+N_GENOME_READS = {"chr22_class_51Mbp": 65_536, "multi_chrom_200Mbp": 262_144}
+RESCUE_SENS_PINNED = {"sensitivity": 0.9299, "precision": 0.9996,
+                      "mapped_frac": 0.9303, "n_reads": 131072,
+                      "rescue_mapped": 3831, "rescue_overflow": 0}
+N_SCALE_READS = 524_288
+SCALE_PINNED = {
+    "clusters": 24311, "alignments": 517684,
+    "fastq_sha256":
+        "945b9166c3e9e3e678e92d771a182a5057538cdb1e08f32018a17c9f80a407b8",
+    "clusters_sha256":
+        "98aef33eba9c4fb0ab8964af3fe8ddbc4cae0a77d4337670a48608277a1228ec",
+    "errorprofile_sha256":
+        "ef9fba58aa5eab030b058a98dc48fe540a08dd254aaefaa70721298931a4da7b",
+}
 # what one process of a coordinator run executes: the port's CLI, its
 # stdout held back until the check that neither jax nor the JAX package
 # came in has passed
@@ -366,150 +459,65 @@ def phase(label: str, /, **fields) -> None:
 # the world (numpy only, so the JAX package can be run on the same files)
 # ---------------------------------------------------------------------------
 
-def bench_chrom() -> np.ndarray:
-    """bench.build_state's reference: default_rng(1), REF_LEN uniform
-    bases, one chromosome."""
-    return np.random.default_rng(1).integers(0, 4, REF_LEN).astype(np.int8)
-
-
-def draw_reads(chrom: np.ndarray, n: int, L: int, seed: int,
-               sub_rate: float = 0.002):
-    """The bench read model -> (reads int8 [n, L], start, reverse).
-
-    default_rng(seed): starts uniform over the windows of L + 1 bases that
-    hold no N, exactly half reverse-strand, 1% with a single-base deletion,
-    `sub_rate` substitutions, T->C at 12% of the read's T positions (machine
-    frame), N_ALL_N all-N reads. On a reference without N the draws are
-    bench.py's."""
-    rng = np.random.default_rng(seed)
-    last = chrom.shape[0] - L - 1
-    n_before = np.concatenate([[0], np.cumsum(chrom == 4, dtype=np.int32)])
-    clean = np.flatnonzero(n_before[L + 1 : last + L + 1] == n_before[:last])
-    start = clean[rng.integers(0, clean.shape[0], n)]
-    deletion = rng.random(n) < 0.01
-    cut = rng.integers(5, L - 5, n)
-    col = np.arange(L)[None, :]
-    idx = start[:, None] + col + (deletion[:, None] & (col >= cut[:, None]))
-    frag = chrom[idx]
-    sub = rng.random((n, L)) < sub_rate
-    frag = np.where(sub, (frag + rng.integers(1, 4, (n, L))) % 4, frag)
-    reverse = np.zeros(n, dtype=bool)
-    reverse[rng.permutation(n)[: n // 2]] = True
-    reads = np.where(reverse[:, None], 3 - frag[:, ::-1], frag)
-    conv = (reads == 3) & (rng.random((n, L)) < 0.12)
-    reads = np.where(conv, 1, reads).astype(np.int8)
-    reads[rng.choice(n, N_ALL_N, replace=False)] = 4
-    return reads, start, reverse
-
-
-def write_world(out_dir, n_reads: int = N_READS) -> dict:
-    """Reference FASTA, all-reads and pinned FASTQs and the truth (.npz):
-    bench_chrom() and draw_reads(seed 2) at READ_LEN."""
-    from parasuite_tpu_torch.io.fasta import write_fasta
-    from parasuite_tpu_torch.io.fastq import write_fastq
-
-    out = Path(out_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    chrom = bench_chrom()
-    write_fasta(out / "ref.fa", {"chr_bench": chrom})
-    reads, start, reverse = draw_reads(chrom, n_reads, READ_LEN, 2)
-    lengths = np.full(n_reads, READ_LEN, dtype=np.int32)
-    names = [f"r{i}" for i in range(n_reads)]
-    write_fastq(out / "all.fastq", names, reads, lengths)
-    write_fastq(out / "pin.fastq", names[:N_PIN], reads[:N_PIN],
-                lengths[:N_PIN])
-    truth = {"start": start, "reverse": reverse}
-    np.savez(out / "truth.npz", **truth)
-    return truth
-
-
-def write_rescue_reads(out_dir) -> None:
+def write_rescue_reads(out_dir) -> dict:
     """rescue.fastq: N_MODE_READS reads of RESCUE_LEN bp on the bench
     reference, draw_reads(seed 3) at 3% substitutions, so the primary
-    k = 12 pass leaves reads unmapped."""
+    k = 12 pass leaves reads unmapped. Returns the truth (start, reverse)."""
     from parasuite_tpu_torch.io.fastq import write_fastq
 
-    reads, _, _ = draw_reads(bench_chrom(), N_MODE_READS, RESCUE_LEN, 3,
-                             sub_rate=0.03)
+    reads, start, reverse = draw_reads(bench_chrom(), N_MODE_READS,
+                                       RESCUE_LEN, 3, sub_rate=0.03)
     write_fastq(Path(out_dir) / "rescue.fastq",
                 [f"s{i}" for i in range(N_MODE_READS)], reads,
                 np.full(N_MODE_READS, RESCUE_LEN, dtype=np.int32))
+    return {"start": start, "reverse": reverse}
 
 
-def write_xa_world(out_dir) -> None:
+def write_xa_world(out_dir):
     """ref.fa: chr22_like(seed=22), the 51 Mbp repeat-structured stand-in
     for hg19 chr22 (a ~10.3 Mbp leading N block, interspersed repeat
     families, satellite, segmental duplications); reads.fastq: N_MODE_READS
-    reads of READ_LEN bp, draw_reads(seed 4) over windows without N."""
+    reads of READ_LEN bp, draw_reads(seed 4) over windows without N.
+    Returns the genome's GenomeStats."""
     from parasuite_tpu_torch.io.fasta import write_fasta
     from parasuite_tpu_torch.io.fastq import write_fastq
     from parasuite_tpu_torch.sim.genome import chr22_like
 
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    seqs, _ = chr22_like(seed=22)
+    seqs, stats = chr22_like(seed=22)
     write_fasta(out / "ref.fa", seqs)
     reads, _, _ = draw_reads(seqs["chr22s"], N_MODE_READS, READ_LEN, 4)
     write_fastq(out / "reads.fastq", [f"x{i}" for i in range(N_MODE_READS)],
                 reads, np.full(N_MODE_READS, READ_LEN, dtype=np.int32))
+    return stats
 
 
 def write_combined_world(out_dir) -> int:
-    """The world of tools/bench_combined.py, without jax: an 8 Mbp chr1
-    (default_rng(11)) with 400 three-exon transcripts (exons 120-400 bp,
-    introns 200-2,000 bp, alternating strands) -> ref.fa + exons.tsv; reads
-    (default_rng(12)): COMB_DRAWN drawn from the combined packing, half
-    genomic and half spliced-transcript (many junction-spanning), T->C at
-    12% of T, reads straddling a spacer dropped, shuffled -> all.fastq, and
-    the first N_PIN of them -> xa.fastq. Returns the number of reads."""
+    """The world of tools/torch_bench_combined.py (build_world, make_reads)
+    as files: an 8 Mbp chr1 (default_rng(11)) with 400 three-exon
+    transcripts (exons 120-400 bp, introns 200-2,000 bp, alternating
+    strands) -> ref.fa + exons.tsv; reads (default_rng(12)): COMB_DRAWN
+    drawn from the combined packing, half genomic and half
+    spliced-transcript (many junction-spanning), T->C at 12% of T, reads
+    straddling a spacer dropped, shuffled -> all.fastq, and the first N_PIN
+    of them -> xa.fastq. Returns the number of reads."""
+    import torch_bench_combined as bench_combined
     from parasuite_tpu_torch.config import AlignConfig
     from parasuite_tpu_torch.io.fasta import write_fasta
     from parasuite_tpu_torch.io.fastq import write_fastq
-    from parasuite_tpu_torch.pipeline.combined import (CombinedReference,
-                                                       Transcript)
 
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    rng = np.random.default_rng(11)
-    genome = {"chr1": rng.integers(0, 4, COMB_GENOME).astype(np.int8)}
-    txs = []
-    for t in range(COMB_TX):
-        start = int(rng.integers(0, COMB_GENOME - 10_000))
-        starts, ends, p = [], [], start
-        for _ in range(3):
-            e = int(rng.integers(120, 400))
-            starts.append(p)
-            ends.append(p + e)
-            p += e + int(rng.integers(200, 2000))
-        txs.append(Transcript(f"t{t}", "chr1", "+" if t % 2 else "-",
-                              np.asarray(starts, dtype=np.int64),
-                              np.asarray(ends, dtype=np.int64)))
+    genome, txs, combined = bench_combined.build_world(
+        AlignConfig(), COMB_GENOME, COMB_TX)
     write_fasta(out / "ref.fa", genome)
     (out / "exons.tsv").write_text("".join(
         f"{t.tx_id}\t{t.chrom}\t{t.strand}\t"
         f"{','.join(map(str, t.exon_starts))}\t"
         f"{','.join(map(str, t.exon_ends))}\n" for t in txs))
-    ref = CombinedReference.build(genome, txs,
-                                  AlignConfig().chrom_spacer).ref
-
-    rng = np.random.default_rng(12)
-    n_g = COMB_DRAWN // 2
-    gpos = rng.integers(int(ref.starts[0]), int(ref.ends[0]) - READ_LEN, n_g)
-    n_t = COMB_DRAWN - n_g
-    ti = rng.integers(0, len(txs), n_t)
-    name_to_ci = {nm: i for i, nm in enumerate(ref.names)}
-    tstart = np.asarray([ref.starts[name_to_ci[f"tx::{t.tx_id}"]]
-                         for t in txs])
-    tlen = np.asarray([t.spliced_len for t in txs])
-    toff = (rng.random(n_t) * np.maximum(tlen[ti] - READ_LEN, 1)).astype(int)
-    pos = np.concatenate([gpos, tstart[ti] + toff])
-    codes = ref.seq[pos[:, None] + np.arange(READ_LEN)[None, :]]
-    conv = (codes == 3) & (rng.random(codes.shape) < 0.12)
-    codes = np.where(conv, 1, codes).astype(np.int8)
-    codes = codes[~np.any(codes == 4, axis=1)]
-    codes = codes[rng.permutation(codes.shape[0])]
+    codes, lengths = bench_combined.make_reads(combined, txs, COMB_DRAWN)
     n = codes.shape[0]
-    lengths = np.full(n, READ_LEN, dtype=np.int32)
     names = [f"c{i}" for i in range(n)]
     write_fastq(out / "all.fastq", names, codes, lengths)
     write_fastq(out / "xa.fastq", names[:N_PIN], codes[:N_PIN],
@@ -609,13 +617,6 @@ def _against_bound(name: str, ms: float, bound: dict,
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
-
-def gpu_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-
 
 def environment() -> str:
     import torch
@@ -804,8 +805,15 @@ def kernels_vs_plain(engine, gpu: str) -> list[dict]:
             lambda: cuda_extend.extend_candidates(oriented, lens, cand, didx,
                                                   sprof, cfg))}
     bound_batch = bounds(BATCH, int(diags.shape[1]))
+    plain_batch = {
+        "select_candidates": _median_ms(
+            lambda: cuda_seed.select_candidates_plain(diags, cfg), reps=3),
+        "extend_candidates": _median_ms(
+            lambda: cuda_extend.extend_candidates_plain(
+                oriented, lens, cand, didx, sprof, cfg), reps=3)}
     for k in out:
         k["ms_65536"] = ms_batch[k["name"]]
+        k["plain_ms_65536"] = plain_batch[k["name"]]
         k.update(_against_bound(k["name"], k["ms_65536"],
                                 bound_batch[k["name"]], "_65536"))
         phase("kernel", **k, gpu=gpu)
@@ -815,14 +823,16 @@ def kernels_vs_plain(engine, gpu: str) -> list[dict]:
 
 def select_widths_equal_plain(dev, gpu: str) -> None:
     """The select kernel against its plain version at every row width it is
-    built for (SELECT_CASES), on select_case_rows; its time there too."""
+    built for (SELECT_CASES), on select_case_rows; its time there too. The
+    widths past 1,024 (the shared-memory path of the kernel) are the
+    select_wide line, with the plain version's time beside the kernel's."""
     import torch
 
     from parasuite_tpu_torch.config import AlignConfig
     from parasuite_tpu_torch.ops import cuda_seed
     from parasuite_tpu_torch.testing import SELECT_CASES, select_case_rows
 
-    widths = []
+    widths, wide = [], []
     for n, C in SELECT_CASES:
         cfg = AlignConfig(max_candidates=C)
         d = torch.from_numpy(select_case_rows(n)).to(dev)
@@ -837,10 +847,26 @@ def select_widths_equal_plain(dev, gpu: str) -> None:
         # timed on 131,072 rows (the main path's row count) of these rows
         big = d.repeat(-(-2 * BATCH // d.shape[0]), 1)[:2 * BATCH].contiguous()
         ms = _median_ms(lambda: cuda_seed.select_candidates(big, cfg))
-        widths.append({"n": n, "C": C, "max_abs_err": 0, "ms_131072_rows": ms,
-                       **_against_bound("select_candidates", ms,
-                                        select_bound(2 * BATCH, n, C))})
+        case = {"n": n, "C": C, "max_abs_err": 0, "ms_131072_rows": ms,
+                **_against_bound("select_candidates", ms,
+                                 select_bound(2 * BATCH, n, C))}
+        if n > 1024:
+            big_got = cuda_seed.select_candidates(big, cfg)
+            big_want = cuda_seed.select_candidates_plain(big, cfg)
+            if not all(torch.equal(g, w) for g, w in zip(big_got, big_want)):
+                raise AssertionError(f"select_candidates differs from plain "
+                                     f"at n={n} on 131,072 rows")
+            del big_got, big_want
+            case["plain_ms_131072_rows"] = _median_ms(
+                lambda: cuda_seed.select_candidates_plain(big, cfg), reps=3)
+            wide.append(case)
+        else:
+            widths.append(case)
+        del big
     phase("select_widths", cases=widths, gpu=gpu)
+    phase("select_wide", cases=wide, n_pad=[2048, 4096],
+          kernel="select_wide_kernel: one block a row, the row in shared "
+                 "memory", gpu=gpu)
 
 
 def _cli_json(argv) -> dict:
@@ -1014,9 +1040,10 @@ def _n_batches(n: int, batch: int) -> int:
     return -(-n // batch)
 
 
-def xa_phase(gpu: str) -> dict:
+def xa_phase(gpu: str):
+    """-> (launches, the xa genome's GenomeStats)."""
     t0 = time.perf_counter()
-    write_xa_world(WORK / "xa")
+    stats = write_xa_world(WORK / "xa")
     _cli_json(["index", str(WORK / "xa/ref.fa"), str(WORK / "xa/idx"),
                *FLAGS])
     t_world = time.perf_counter() - t0
@@ -1037,7 +1064,7 @@ def xa_phase(gpu: str) -> dict:
             world_and_index_seconds=round(t_world, 3), reads=res["reads"],
             align_seconds=res["seconds"],
             reads_per_s=res["reads_per_second"], gpu=gpu)
-    return launches
+    return launches, stats
 
 
 def _kernels_equal_plain(didx, sprof, cfg, codes, lengths) -> dict:
@@ -1077,14 +1104,20 @@ def _kernels_equal_plain(didx, sprof, cfg, codes, lengths) -> dict:
              "extend_candidates": extend_bound(
                  lengths, cfg.max_candidates, cfg.max_read_len,
                  cfg.band_width, G)}
+    plain_ms = {"select_candidates": _median_ms(
+                    lambda: cuda_seed.select_candidates_plain(d, cfg), reps=3),
+                "extend_candidates": _median_ms(
+                    lambda: cuda_extend.extend_candidates_plain(
+                        o, ln, cand, didx, sprof, cfg), reps=3)}
     return {"max_abs_err": errs, "diagonals_per_row": int(d.shape[1]),
             "rows": int(d.shape[0]),
-            **{name: {"ms": ms[name],
+            **{name: {"ms": ms[name], "plain_ms": plain_ms[name],
                       **_against_bound(name, ms[name], bound[name])}
                for name in ms}}
 
 
-def rescue_phase(gpu: str) -> dict:
+def rescue_phase(gpu: str):
+    """-> (launches, the truth of the rescue reads)."""
     from parasuite_tpu_torch.config import AlignConfig
     from parasuite_tpu_torch.index import KmerIndex, PackedReference
     from parasuite_tpu_torch.io.bam import bam_to_sam
@@ -1092,7 +1125,7 @@ def rescue_phase(gpu: str) -> dict:
     from parasuite_tpu_torch.pipeline.align import AlignerEngine
 
     t0 = time.perf_counter()
-    write_rescue_reads(WORK)
+    truth = write_rescue_reads(WORK)
     _reset_counters()
     t1 = time.perf_counter()
     res = _cli_json(["twopass", str(WORK / "idx"),
@@ -1135,7 +1168,7 @@ def rescue_phase(gpu: str) -> dict:
             twopass_reads_per_s=round(res["reads"] / t_run, 1),
             gap_open=res["gap_open"], gap_extend=res["gap_extend"],
             kernels_vs_plain_at_rescue_shapes=vs_plain, gpu=gpu)
-    return launches
+    return launches, truth
 
 
 def _unprojected_align(comb, out) -> dict:
@@ -1535,7 +1568,8 @@ def dist_coord_phase(gpu: str) -> dict:
     return _add(*runs)
 
 
-def shards_phase(gpu: str) -> dict:
+def shards_phase(gpu: str, k: int = 12, label: str = "shards",
+                 pins: dict | None = None, all_equal: bool = False) -> dict:
     """The chromosome-sharded index at 100 Mbp: build_sharded_index over two
     shards, make_sharded_step on a 1 x 2 grid of the first card given twice,
     N_SHARD_READS reads in one call. Pinned to the JAX package's sharded
@@ -1543,7 +1577,14 @@ def shards_phase(gpu: str) -> dict:
     the full index by the module's contract: the replicated candidate list
     saturates on this reference (n_candidates == 2C on nearly every read),
     so the sharded step maps a superset of reads; every read the replicated
-    path maps has every field equal (position through full.locate)."""
+    path maps has every field equal (position through full.locate).
+
+    With all_equal (the run at k = 15, where the JAX package's replicated
+    step on the CPU saturates no read's candidate list; 47,497 reads
+    saturate at k = 13 and 4 at k = 14) the two paths must agree on ALL
+    reads: no read saturated, the same reads mapped, and the nine fields
+    equal on every one of them. The host seconds of the index builds are
+    reported (a k = 15 bucket array is 4.3 GB per index)."""
     import torch
 
     from parasuite_tpu_torch.config import AlignConfig
@@ -1557,8 +1598,9 @@ def shards_phase(gpu: str) -> dict:
     from parasuite_tpu_torch.parallel.shards import (build_sharded_index,
                                                      make_sharded_step)
 
+    pins = SHARDS_PINNED if pins is None else pins
     t0 = time.perf_counter()
-    cfg = AlignConfig(max_read_len=READ_LEN, kmer_size=12,
+    cfg = AlignConfig(max_read_len=READ_LEN, kmer_size=k,
                       batch_size=N_SHARD_READS, max_candidates=8, max_occ=16)
     seqs, reads = shards_world()
     t_world = time.perf_counter() - t0
@@ -1581,8 +1623,11 @@ def shards_phase(gpu: str) -> dict:
                "all_65536": shards_digest(got, N_SHARD_READS)}
 
     # the replicated path on the full 100 Mbp index, same reads
-    didx = DeviceIndex.from_host(
-        full, KmerIndex.build(full.seq, cfg.kmer_size), card0)
+    t1 = time.perf_counter()
+    full_index = KmerIndex.build(full.seq, cfg.kmer_size)
+    t_full_index = time.perf_counter() - t1
+    didx = DeviceIndex.from_host(full, full_index, card0)
+    del full_index
     args = tuple(torch.from_numpy(x).to(card0) for x in (reads, lengths, ms))
     _reset_counters()
     rep = align_batch(didx, sprof, *args, cfg)
@@ -1603,31 +1648,42 @@ def shards_phase(gpu: str) -> dict:
     ms_replicated = _median_ms(lambda: align_batch(
         didx, sprof, *(torch.from_numpy(x).to(card0)
                        for x in (reads, lengths, ms)), cfg), reps=5)
-    phase("shards", reads=N_SHARD_READS, ref_len=int(full.total_len),
-          slab_bytes_per_shard={k: int(getattr(sharded, k)[0].nbytes)
-                                for k in ("ref_seq", "bucket_starts",
+    saturated = int((rep["n_candidates"] == 2 * cfg.max_candidates).sum())
+    mapped_differ = int((got["mapped"] != m).sum())
+    phase(label, reads=N_SHARD_READS, kmer_size=k,
+          ref_len=int(full.total_len),
+          slab_bytes_per_shard={f: int(getattr(sharded, f)[0].nbytes)
+                                for f in ("ref_seq", "bucket_starts",
                                           "positions")},
           world_seconds=round(t_world, 3), build_seconds=round(t_build, 3),
+          full_index_build_seconds=round(t_full_index, 3),
           launches=launches, replicated_launches=rep_launches,
           digests=digests, mapped=int(got["mapped"].sum()),
           replicated_mapped=int(m.sum()), lost_vs_replicated=lost,
           mapped_only_by_sharding=int((~m & got["mapped"]).sum()),
-          replicated_saturated=int((rep["n_candidates"]
-                                    == 2 * cfg.max_candidates).sum()),
+          replicated_saturated=saturated,
+          reads_whose_mapped_flag_differs=mapped_differ,
           fields_differing_on_replicated_mapped=differing,
+          all_reads_equal=(saturated == 0 and mapped_differ == 0
+                           and not any(differing.values())),
           winners_by_shard=np.bincount(got["shard"][got["mapped"]],
                                        minlength=2).tolist(),
           ms_per_call_sharded=ms_sharded,
           ms_per_call_replicated=ms_replicated,
           seconds=round(time.perf_counter() - t0, 3), gpu=gpu)
-    bad = {k: {"got": digests[k], "jax": SHARDS_PINNED[k]} for k in digests
-           if digests[k] != SHARDS_PINNED[k]}
+    bad = {f: {"got": digests[f], "jax": pins[f]} for f in digests
+           if digests[f] != pins[f]}
     if bad:
-        raise AssertionError(f"shards: differs from the JAX package's "
+        raise AssertionError(f"{label}: differs from the JAX package's "
                              f"sharded step: {bad}")
     if lost or any(differing.values()):
-        raise AssertionError(f"shards: against the replicated path lost "
+        raise AssertionError(f"{label}: against the replicated path lost "
                              f"{lost} reads, fields differing {differing}")
+    if all_equal and (saturated or mapped_differ):
+        raise AssertionError(f"{label}: {saturated} reads saturate the "
+                             f"replicated candidate list and {mapped_differ} "
+                             f"reads are mapped by one path only; want "
+                             f"equality on all {N_SHARD_READS} reads")
     return _add(launches, rep_launches)
 
 
@@ -1702,6 +1758,220 @@ def entry_phase(gpu: str) -> dict:
     return launches
 
 
+def profile_e2e_phase(gpu: str) -> dict:
+    """tools/torch_profile_e2e.py on the smoke's own files: where FASTQ ->
+    SAM time goes in plain mode (all bench reads), with --xa (the xa world)
+    and in combined mode (the projected step), and the device-busy share of
+    each run's wall. The probed plain SAM must be the at-scale phase's."""
+    import torch_profile_e2e as prof
+
+    runs = (("plain", WORK / "idx", WORK / "all.fastq", False, 2),
+            ("xa", WORK / "xa/idx", WORK / "xa/reads.fastq", True, 1),
+            ("combined", WORK / "comb/cidx", WORK / "comb/all.fastq", False,
+             2))
+    _reset_counters()
+    report, want = {}, 0
+    for name, index, fastq, xa, rounds in runs:
+        engine = prof.load_engine(index, "cuda", xa, BATCH)
+        out = WORK / f"profile_{name}.sam"
+        rec = prof.profile_stream(engine, fastq, out, rounds=rounds,
+                                  command_line="smoke")
+        report[name] = rec
+        want += rounds * rec["batches"] + getattr(engine, "packed_overflow",
+                                                  0)
+        if not (0.0 < rec["device_busy_share"] <= 1.0):
+            raise AssertionError(f"profile_e2e {name}: device-busy share "
+                                 f"{rec['device_busy_share']}")
+        if any(t["self_seconds"] < 0 for t in rec["timers"].values()):
+            raise AssertionError(f"profile_e2e {name}: a negative timer")
+    launches = _counters()
+    phase("profile_e2e", runs=report, launches=launches, gpu=gpu)
+    for name, pinned in (("plain", AT_SCALE["all.sam"]),
+                         ("xa", XA_PINNED["xa/xa.sam"])):
+        if sha256(WORK / f"profile_{name}.sam") != pinned:
+            raise AssertionError(f"profile_e2e: the probed {name} run wrote "
+                                 f"another SAM than the unprobed one")
+    _expect_launches(launches, want, "profile_e2e")
+    return launches
+
+
+def sweep_lengths_phase(gpu: str) -> dict:
+    """tools/torch_sweep_lengths.py's adaptive placement at 36 / 50 / 75 /
+    100 bp, N_SWEEP_READS reads a length on the bench world, against the
+    JAX package's counts on the same reads (SWEEP_PINNED)."""
+    import torch_sweep_lengths as sweep
+
+    base = tb.make_cfg(BATCH)
+    _reset_counters()
+    lines, bad = [], {}
+    for L in sweep.LENGTHS:
+        line = sweep.sweep_line(base, "adaptive", L, N_SWEEP_READS, REF_LEN,
+                                "cuda")
+        lines.append(line)
+        pin = SWEEP_PINNED[L]
+        for f in ("sensitivity", "precision"):
+            if abs(line[f] - pin[f]) > ACCURACY_SLACK:
+                bad[f"{L}.{f}"] = {"got": line[f], "jax": pin[f]}
+        for f in ("stride_eff", "n_mismapped"):
+            if line[f] != pin[f]:
+                bad[f"{L}.{f}"] = {"got": line[f], "jax": pin[f]}
+    launches = _counters()
+    phase("sweep_lengths", lines=lines, pinned=SWEEP_PINNED,
+          n_unmapped_equal_to_jax=all(
+              ln["n_unmapped"] == SWEEP_PINNED[ln["read_len"]]["n_unmapped"]
+              for ln in lines),
+          reads_per_length=N_SWEEP_READS, launches=launches, gpu=gpu)
+    if bad:
+        raise AssertionError(f"sweep_lengths: differs from the JAX "
+                             f"package's: {bad}")
+    # per length one warm-up batch and TIMED_ROUNDS rounds of one batch
+    _expect_launches(launches, len(sweep.LENGTHS) * (1 + tb.TIMED_ROUNDS)
+                     * _n_batches(N_SWEEP_READS, BATCH), "sweep_lengths")
+    return launches
+
+
+def genome_phase(xa_stats, gpu: str) -> dict:
+    """tools/torch_bench_genome.py at full width: the 200 Mbp five-chromosome
+    genome at k = 13, batch 65,536 (world, index and index census built
+    here; the host seconds of each are reported), and the 51 Mbp chr22-class
+    world of the xa phase at k = 12 on its index. Census numbers, the
+    seeding-blind read count and the accuracy fractions against the JAX
+    package's (GENOME_PINNED)."""
+    import torch
+
+    import torch_bench_genome as genome
+    from parasuite_tpu_torch.index import KmerIndex, PackedReference
+    from parasuite_tpu_torch.sim.genome import multi_chrom
+
+    t0 = time.perf_counter()
+    _reset_counters()
+    xa_ref = PackedReference.load(WORK / "xa/idx")
+    worlds = [genome.run_world(
+        "chr22_class_51Mbp", xa_ref, xa_stats, genome.make_cfg(BATCH, 12),
+        N_GENOME_READS["chr22_class_51Mbp"], False, "cuda",
+        index=KmerIndex.load(WORK / "xa/idx"))]
+    del xa_ref
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    seqs, stats = multi_chrom(200_000_000, 5)
+    cfg = genome.make_cfg(BATCH, 13)
+    ref = PackedReference.from_dict(seqs, spacer=cfg.chrom_spacer)
+    t_world = time.perf_counter() - t1
+    worlds.append(genome.run_world(
+        "multi_chrom_200Mbp", ref, stats, cfg,
+        N_GENOME_READS["multi_chrom_200Mbp"], False, "cuda"))
+    launches = _counters()
+    bad = {}
+    for w in worlds:
+        pin = GENOME_PINNED[w["world"]]
+        for f in GENOME_EXACT:
+            if w[f] != pin[f]:
+                bad[f"{w['world']}.{f}"] = {"got": w[f], "jax": pin[f]}
+        for f in GENOME_FRACTIONS:
+            if abs(w[f] - pin[f]) > ACCURACY_SLACK:
+                bad[f"{w['world']}.{f}"] = {"got": w[f], "jax": pin[f]}
+    phase("genome", worlds=worlds, pinned=GENOME_PINNED,
+          world_200Mbp_seconds=round(t_world, 3), launches=launches,
+          seconds=round(time.perf_counter() - t0, 3), gpu=gpu)
+    if bad:
+        raise AssertionError(f"genome: differs from the JAX package's: "
+                             f"{bad}")
+    if worlds[1]["n_reads"] != 262_144 or worlds[1]["kmer_size"] != 13:
+        raise AssertionError(f"genome: the 200 Mbp world ran {worlds[1]}")
+    # per world one warm-up batch and three rounds of every batch
+    _expect_launches(launches, sum(
+        1 + 3 * _n_batches(n, BATCH) for n in N_GENOME_READS.values()),
+        "genome")
+    return launches
+
+
+def rescue_sens_phase(truth: dict, gpu: str) -> dict:
+    """Sensitivity at 36 bp with rescue_kmer 11 on the rescue phase's reads
+    (tools/torch_bench_rescue.py's engine_accuracy against the reads'
+    truth), pinned to the JAX engine's on the same reads
+    (RESCUE_SENS_PINNED)."""
+    from types import SimpleNamespace
+
+    import torch_bench_rescue as rescue
+    from parasuite_tpu_torch.config import AlignConfig
+    from parasuite_tpu_torch.index import KmerIndex, PackedReference
+    from parasuite_tpu_torch.io.fastq import read_fastq
+    from parasuite_tpu_torch.pipeline.align import AlignerEngine
+
+    cfg = AlignConfig(max_read_len=RESCUE_LEN, kmer_size=12,
+                      batch_size=RESCUE_BATCH, max_candidates=8, max_occ=16,
+                      rescue_kmer=11)
+    ref = PackedReference.load(WORK / "idx")
+    engine = AlignerEngine(ref, KmerIndex.load(WORK / "idx"), cfg,
+                           device="cuda")
+    batch = read_fastq(WORK / "rescue.fastq", RESCUE_LEN)
+    packed = SimpleNamespace(
+        strand=truth["reverse"].astype(np.int32),
+        packed_pos=truth["start"].astype(np.int64) + int(ref.starts[0]))
+    _reset_counters()
+    acc, n = rescue.engine_accuracy(engine, batch.codes, batch.lengths,
+                                    packed)
+    launches = _counters()
+    got = {**acc, "n_reads": n, "rescue_mapped": engine.rescue_mapped,
+           "rescue_overflow": engine.rescue_overflow}
+    phase("rescue_sens", got=got, pinned=RESCUE_SENS_PINNED,
+          launches=launches, gpu=gpu)
+    bad = {f: {"got": got[f], "jax": v} for f, v in RESCUE_SENS_PINNED.items()
+           if (abs(got[f] - v) > ACCURACY_SLACK if isinstance(v, float)
+               else got[f] != v)}
+    if bad:
+        raise AssertionError(f"rescue_sens: differs from the JAX engine's: "
+                             f"{bad}")
+    # one primary and one rescue step a batch (every batch has all-N reads)
+    _expect_launches(launches, 2 * _n_batches(N_MODE_READS, RESCUE_BATCH),
+                     "rescue_sens")
+    return launches
+
+
+def scale_phase(gpu: str) -> None:
+    """tools/torch_scale_run.py at N_SCALE_READS reads as its own process
+    (it runs the port's CLI in subprocesses, so this process counts none of
+    its launches): the kill lands mid-run, the resumed BAM and .errorprofile
+    equal the control's bytes, the native cluster scan equals the Python
+    oracle on the first 131,072 records, and the cluster count is the JAX
+    CLI's (SCALE_PINNED)."""
+    import os
+
+    env = {**os.environ, "PARASUITE_SCALE_READS": str(N_SCALE_READS),
+           "PARASUITE_SCALE_DIR": str(WORK / "scale"),
+           "PARASUITE_BENCH_BATCH": str(BATCH),
+           "PARASUITE_SCALE_SPOTCHECK": str(2 * BATCH)}
+    for var in ("PARASUITE_SCALE_KILL_AFTER", "PARASUITE_SCALE_KILL_BATCHES",
+                "PARASUITE_SCALE_REFSCALE", "PARASUITE_SCALE_SITES"):
+        env.pop(var, None)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable,
+                        str(REPO / "tools" / "torch_scale_run.py"),
+                        "--device", "cuda"], env=env, capture_output=True,
+                       text=True, timeout=900)
+    if p.returncode != 0:
+        raise AssertionError(f"scale: torch_scale_run.py exited "
+                             f"{p.returncode}:\n{p.stdout[-2000:]}\n"
+                             f"{p.stderr[-3000:]}")
+    stats = json.loads(p.stdout.strip().splitlines()[-1])
+    got = {"clusters": stats["cluster"]["result"]["clusters"],
+           "alignments": stats["cluster"]["result"]["alignments"],
+           "fastq_sha256": sha256(WORK / "scale/reads.fastq"),
+           "clusters_sha256": sha256(WORK / "scale/clusters.tsv"),
+           "errorprofile_sha256": sha256(
+               WORK / "scale/run/out.bam.errorprofile")}
+    phase("scale", stats=stats, got=got, pinned=SCALE_PINNED,
+          seconds=round(time.perf_counter() - t0, 3), gpu=gpu)
+    bad = {f: {"got": got[f], "jax": v} for f, v in SCALE_PINNED.items()
+           if got[f] != v}
+    if bad:
+        raise AssertionError(f"scale: differs from the JAX CLI's: {bad}")
+    if not stats["resume_byte_identical"] \
+            or not stats["cluster_spotcheck"]["parity"] \
+            or stats["twopass_resumed"]["result"]["reads"] != N_SCALE_READS:
+        raise AssertionError(f"scale: {stats}")
+
+
 def main() -> int:
     gpu = environment()
     build()
@@ -1720,13 +1990,25 @@ def main() -> int:
     kernels = kernels_vs_plain(engine, gpu)
     runs = [pinned_twopass(), at_scale(truth, gpu)]
     device_rate(engine, gpu)
-    runs += [xa_phase(gpu), rescue_phase(gpu), combined_phase(gpu)]
+    xa_launches, xa_stats = xa_phase(gpu)
+    rescue_launches, rescue_truth = rescue_phase(gpu)
+    runs += [xa_launches, rescue_launches, combined_phase(gpu)]
     sim_phase(gpu)
     runs.append(benchmark_phase(gpu))
     tools_phase(gpu)
     runs += [dist_step_phase(engine, gpu), dist_file_phase(gpu),
              dist_coord_phase(gpu), shards_phase(gpu), scaling_phase(gpu),
              entry_phase(gpu)]
+    # the measurement scripts beside the package, and the run of the shards
+    # world at the k where sharded = replicated on all reads
+    runs += [profile_e2e_phase(gpu), sweep_lengths_phase(gpu),
+             rescue_sens_phase(rescue_truth, gpu)]
+    del engine
+    torch.cuda.empty_cache()
+    runs.append(genome_phase(xa_stats, gpu))
+    scale_phase(gpu)
+    runs.append(shards_phase(gpu, k=15, label="shards_k15",
+                             pins=SHARDS_K15_PINNED, all_equal=True))
     for k in kernels:
         k["launches"] = sum(r[k["name"]] for r in runs)
     foreign = sorted(m for m in sys.modules

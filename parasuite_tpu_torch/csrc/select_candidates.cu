@@ -1,4 +1,6 @@
-// Candidate selection, one warp per oriented read, the row in registers.
+// Candidate selection, one warp per oriented read, the row in registers
+// (rows of up to 1,024 diagonals), or one block per read, the row in shared
+// memory (2,048 and 4,096: select_wide_kernel below).
 //
 // Replaces parasuite_tpu/ops/pallas_seed.py::_select_kernel (line 40; launched
 // by select_candidates_pallas, pl.pallas_call at line 103). Contract:
@@ -42,6 +44,17 @@
 //
 // ptxas -v (nvcc 12.9, sm_90a): 28 / 30 / 32 / 37 / 55 / 80 registers at
 // E = 1 .. 32, no stack frame below E = 32 and one 8-byte spill there.
+//
+// Rows wider than 1,024 (max_seeds x max_occ past the bench operating point,
+// e.g. 17 seeds x 64 occurrences) do not fit a warp's registers. They take
+// select_wide_kernel: one block of 256 threads per row, the row padded to
+// NP = 2,048 or 4,096 entries in shared memory (8 or 16 KB, plus as much for
+// the keys), the same all-ascending network with a __syncthreads() between
+// stages, votes by a binary search for the end of each run in the sorted
+// row, and the top C by C block-wide minima of one int32 key per entry,
+// (NP - votes) * NP + position, which orders by (votes desc, diagonal asc)
+// because the row is in diagonal order. A simple kernel that is right: its
+// time is written down, not tuned.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -236,6 +249,108 @@ cudaError_t launch(const int32_t* diags, int rows, int n, int C,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// wide rows: one block per row, the row in shared memory
+// ---------------------------------------------------------------------------
+
+constexpr int kWideThreads = 256;
+
+template <int NP>
+__global__ void __launch_bounds__(kWideThreads)
+    select_wide_kernel(const int32_t* __restrict__ diags, int n, int C,
+                       int32_t* __restrict__ cand,
+                       uint8_t* __restrict__ valid) {
+  constexpr int T = kWideThreads;
+  constexpr int kNone = (NP + 1) * NP;  // key of an entry that is no result
+  __shared__ int32_t s[NP];             // the row, then sorted
+  __shared__ int32_t key[NP];           // (NP - votes) * NP + position
+  __shared__ int32_t warp_min[T / 32];
+  __shared__ int32_t winner;
+  const int t = threadIdx.x;
+  const size_t row = blockIdx.x;
+  const int32_t* src = diags + row * n;
+
+  for (int p = t; p < NP; p += T) s[p] = p < n ? __ldg(src + p) : kI32Max;
+  __syncthreads();
+
+  // bitonic sort, every compare-exchange ascending: a merge of size k pairs
+  // p with p ^ (k - 1), then with p ^ j for j = k/4 .. 1
+  for (int k = 2; k <= NP; k <<= 1) {
+    const int half = k >> 1;
+    for (int i = t; i < NP / 2; i += T) {
+      const int base = (i / half) * k, off = i % half;
+      const int lo = base + off, hi = base + k - 1 - off;
+      const int32_t a = s[lo], b = s[hi];
+      if (a > b) {
+        s[lo] = b;
+        s[hi] = a;
+      }
+    }
+    __syncthreads();
+    for (int j = k >> 2; j >= 1; j >>= 1) {
+      for (int i = t; i < NP / 2; i += T) {
+        const int lo = 2 * j * (i / j) + (i % j), hi = lo + j;
+        const int32_t a = s[lo], b = s[hi];
+        if (a > b) {
+          s[lo] = b;
+          s[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  // votes of the run that starts at p: the first position after p whose
+  // diagonal is larger, minus p (binary search in the sorted row)
+  int32_t best = kNone;  // this thread's smallest key, positions t, t+T, ...
+  for (int p = t; p < NP; p += T) {
+    const int32_t d = s[p];
+    int32_t kv = kNone;
+    if (d != kI32Max && (p == 0 || s[p - 1] != d)) {
+      int lo = p + 1, hi = NP;  // first q in [p + 1, NP] with s[q] > d
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (s[mid] > d) hi = mid; else lo = mid + 1;
+      }
+      kv = (NP - (lo - p)) * NP + p;
+    }
+    key[p] = kv;
+    best = min(best, kv);
+  }
+
+  int32_t* out_c = cand + row * C;
+  uint8_t* out_v = valid + row * C;
+  for (int c = 0; c < C; ++c) {
+    const int32_t wm = __reduce_min_sync(kFull, best);
+    if ((t & 31) == 0) warp_min[t >> 5] = wm;
+    __syncthreads();
+    if (t == 0) {
+      int32_t m = warp_min[0];
+#pragma unroll
+      for (int w = 1; w < T / 32; ++w) m = min(m, warp_min[w]);
+      winner = m;
+      const bool found = m < kNone;
+      out_c[c] = found ? s[m % NP] : kI32Max;
+      out_v[c] = found ? 1 : 0;
+    }
+    __syncthreads();
+    const int32_t m = winner;
+    if (m < kNone && (m % NP) % T == t) {  // the owner knocks it out
+      key[m % NP] = kNone;
+      best = kNone;
+      for (int p = t; p < NP; p += T) best = min(best, key[p]);
+    }
+  }
+}
+
+template <int NP>
+cudaError_t launch_wide(const int32_t* diags, int rows, int n, int C,
+                        int32_t* cand, uint8_t* valid, cudaStream_t stream) {
+  select_wide_kernel<NP><<<rows, kWideThreads, 0, stream>>>(diags, n, C, cand,
+                                                            valid);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ps_select_candidates(const void* diags, int rows, int n,
@@ -259,6 +374,10 @@ extern "C" int ps_select_candidates(const void* diags, int rows, int n,
       return (int)launch<16>(d, rows, n, C, oc, ov, st);
     case 1024:
       return (int)launch<32>(d, rows, n, C, oc, ov, st);
+    case 2048:
+      return (int)launch_wide<2048>(d, rows, n, C, oc, ov, st);
+    case 4096:
+      return (int)launch_wide<4096>(d, rows, n, C, oc, ov, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

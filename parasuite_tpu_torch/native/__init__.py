@@ -6,20 +6,49 @@ Usage: call available() to check (attempts a lazy `make` the first time);
 kmer_index_build() and fastq_scan_file() raise if the library is missing —
 callers (index.kmer.KmerIndex.build, io.fastq) fall back to numpy paths that
 produce bit-identical output.
+
+The first build is safe when several processes start at once (`dist-align
+--coordinator` starts N): each builds under a name of its own and renames
+the result into place, and a build or load that fails says so once on
+stderr before the numpy paths take over.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
 
 _DIR = Path(__file__).resolve().parent
 _LIB_PATH = _DIR / "libparasuite_native.so"
+_ABI = 4
 _lib = None
 _tried = False
+
+
+def _make() -> None:
+    """Build the library under a name of this process's own, then rename it
+    into place: a process that starts meanwhile sees no library or a whole
+    one, never a half-written file (os.replace is atomic; ops/_build.py
+    builds the kernels the same way)."""
+    tmp = _DIR / f"libparasuite_native.{os.getpid()}.so"
+    try:
+        subprocess.run(["make", "-s", "-B", "-C", str(_DIR), tmp.name,
+                        f"LIB={tmp.name}"], timeout=300,
+                       capture_output=True, text=True, check=True)
+        os.replace(tmp, _LIB_PATH)
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
+def _open():
+    lib = ctypes.CDLL(str(_LIB_PATH))
+    lib.ps_abi_version.restype = ctypes.c_int32
+    return lib if lib.ps_abi_version() == _ABI else None
 
 
 def _load():
@@ -27,23 +56,14 @@ def _load():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not _LIB_PATH.exists():
-        try:
-            subprocess.run(["make", "-s", "-C", str(_DIR)], timeout=120,
-                           capture_output=True, check=True)
-        except Exception:
-            return None
     try:
-        lib = ctypes.CDLL(str(_LIB_PATH))
-        lib.ps_abi_version.restype = ctypes.c_int32
-        if lib.ps_abi_version() != 4:
-            # stale build: rebuild once and retry
-            subprocess.run(["make", "-s", "-B", "-C", str(_DIR)], timeout=120,
-                           capture_output=True, check=True)
-            lib = ctypes.CDLL(str(_LIB_PATH))
-            lib.ps_abi_version.restype = ctypes.c_int32
-            if lib.ps_abi_version() != 4:
-                return None
+        lib = _open() if _LIB_PATH.exists() else None
+        if lib is None:      # no library yet, or a stale one: build, retry
+            _make()
+            lib = _open()
+            if lib is None:
+                raise OSError(f"{_LIB_PATH.name} has another ABI than "
+                              f"{_ABI} after a rebuild")
         lib.ps_kmer_index_build.restype = ctypes.c_int64
         lib.ps_kmer_index_build.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
@@ -55,7 +75,12 @@ def _load():
             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.POINTER(ctypes.c_int64)]
         _lib = lib
-    except OSError:
+    except (OSError, subprocess.SubprocessError) as e:
+        # the numpy paths give the same bytes, slower: say so once
+        detail = (getattr(e, "stderr", None) or str(e)).strip()
+        sys.stderr.write(f"parasuite_tpu_torch.native: the C++ host library "
+                         f"is unavailable, taking the numpy paths "
+                         f"({type(e).__name__}: {detail[-500:]})\n")
         _lib = None
     return _lib
 

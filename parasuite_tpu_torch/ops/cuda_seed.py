@@ -16,7 +16,13 @@ lengths (the votes) from a suffix minimum of run-start positions inside the
 lane and over lanes, as in the plain version below. Each of the C rounds is
 one warp-wide minimum of every lane's best -votes; the lowest lane that
 holds it owns the smallest such diagonal (the row is in diagonal order), and
-only that lane rescans its registers.
+only that lane rescans its registers. Rows wider than 1,024 (n_pad 2,048 and
+4,096, e.g. 17 seeds x 64 occurrences) take a second template of the same
+source: one block per row, the row in shared memory, the same network with
+a barrier between stages, votes by a binary search for each run's end, and
+the top C by C block-wide minima of one int32 key per entry. Past 4,096 the
+wrapper raises, and AlignerEngine refuses such a config when it is built
+(check_row_width).
 
 What bounds it on the H100: the function is bound by bytes — a row is
 n * 4 bytes (448 B at 7 seeds x 16 occurrences) read once and 5 * C bytes
@@ -38,7 +44,7 @@ import torch
 from parasuite_tpu_torch.config import AlignConfig
 
 I32MAX = int(np.iinfo(np.int32).max)
-MAX_PAD = 1024   # widest row the kernel is built for: 32 registers a lane
+MAX_PAD = 4096   # widest row the kernel is built for (shared-memory path)
 
 launches = 0     # kernel launches through select_candidates
 
@@ -69,6 +75,30 @@ def select_candidates_plain(diags: torch.Tensor, cfg: AlignConfig):
     negv_s = (ks >> 32)[:, :C]
     dd_s = ((ks & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)[:, :C]
     return dd_s, negv_s < 1
+
+
+def row_width(cfg: AlignConfig) -> int:
+    """Diagonals per row that seeding hands to select_candidates under cfg:
+    max_seeds * max_occ, and in the rescue pass max(rescue_seeds,
+    max_seeds) * max_occ."""
+    seeds = (max(cfg.rescue_seeds, cfg.max_seeds) if cfg.rescue_kmer
+             else cfg.max_seeds)
+    return seeds * cfg.max_occ
+
+
+def check_row_width(cfg: AlignConfig) -> None:
+    """Raise ValueError, naming the flags, when cfg's rows are wider than
+    the select kernel is built for."""
+    n = row_width(cfg)
+    if n > MAX_PAD:
+        seeds = ("max(--rescue-seeds, --max-seeds)" if cfg.rescue_kmer
+                 else "--max-seeds")
+        raise ValueError(
+            f"{seeds} x --max-occ = {n} diagonals per row; the select "
+            f"kernel is built for rows of up to {MAX_PAD}: lower --max-occ "
+            f"(now {cfg.max_occ}), --max-seeds (now {cfg.max_seeds})"
+            + (f" or --rescue-seeds (now {cfg.rescue_seeds})"
+               if cfg.rescue_kmer else ""))
 
 
 def select_candidates(diags: torch.Tensor, cfg: AlignConfig):

@@ -31,6 +31,7 @@ from parasuite_tpu_torch.utils.dna import N, revcomp_codes
 from parasuite_tpu_torch.ops.aligner import (AlignResult, CandidateTable,
                                              align_batch,
                                              align_batch_with_candidates)
+from parasuite_tpu_torch.ops.cuda_seed import check_row_width
 from parasuite_tpu_torch.ops.device_index import (DeviceIndex, ScoreParams,
                                                   min_score_table)
 from parasuite_tpu_torch.ops.profile_update import profile_counts_batch
@@ -295,6 +296,9 @@ class AlignerEngine:
                  cfg: AlignConfig, s_tensor: np.ndarray | None = None,
                  xa_tags: bool = False, xa_limit: int = 10, device="cuda"):
         self.device = resolve_device(device)
+        # a row wider than the select kernel takes is refused here, on
+        # every device, before any index is uploaded
+        check_row_width(cfg)
         self.ref = ref
         self.sam_ref = ref  # reference used for SAM emission
         self.cfg = cfg

@@ -1,9 +1,16 @@
 """Streaming alignment with batch-granular checkpoint/resume.
 
 A copy of parasuite_tpu/pipeline/stream.py (that package imports jax when
-it is imported). The one change: the profile counts come to the host
-with .cpu() instead of jax.device_get, and the results stay on the
-device until engine.to_host fetches them.
+it is imported). Two changes: the profile counts come to the host with
+.cpu() instead of jax.device_get, and the results stay on the device until
+engine.to_host fetches them; and the manifest carries the partial profile
+counts and indel counts itself (keys "counts" and "indels"), so that one
+atomic rename commits a checkpoint. The original commits them as three
+files one after the other, and a kill between the counts file and the
+manifest leaves counts one batch ahead of the manifest: the resumed run
+then counts that batch twice. The side files are still written (the
+multi-host merge and the original's resume read them), and a manifest
+without the keys (one the original wrote) falls back to them.
 
 SURVEY.md §5 failure detection / checkpoint-resume: the reference's only
 recovery is "every stage output is a file, rerun the stage by hand". Here the
@@ -14,7 +21,8 @@ is a bounded batch job (SURVEY.md §5), restartability is per (shard, batch).
 
 Layout next to the output SAM shard:
     <out>.progress.json   {batches_done, records, batch_records, sam_bytes,
-                           cfg_hash, complete}
+                           cfg_hash, complete; profile passes also counts,
+                           indels}
     <out>.counts.npy      partial int64 [L, 4, 4] (profile passes only)
 
 Determinism note: a resumed run produces byte-identical output to an
@@ -80,21 +88,38 @@ class StreamCheckpoint:
             np.savez(tmp, ins=ins, dels=dels,
                      n_gapped=np.int64(n_gapped))
             os.replace(tmp, self.indels_path)
-        tmp = str(self.manifest) + ".tmp"
-        Path(tmp).write_text(json.dumps({
+        state = {
             "batches_done": batches_done, "records": records,
             "profiled": profiled, "cfg_hash": self.cfg_hash,
             "sam_bytes": sam_bytes,
             "batch_records": batch_records if batch_records is not None else [],
-            "complete": complete}))
+            "complete": complete}
+        # the counts ride in the manifest too: its rename is the commit
+        if counts is not None:
+            state["counts"] = np.asarray(counts).tolist()
+        if indels is not None:
+            state["indels"] = {"ins": np.asarray(indels[0]).tolist(),
+                               "dels": np.asarray(indels[1]).tolist(),
+                               "n_gapped": int(indels[2])}
+        tmp = str(self.manifest) + ".tmp"
+        Path(tmp).write_text(json.dumps(state))
         os.replace(tmp, self.manifest)
 
-    def load_counts(self, shape) -> np.ndarray:
+    def load_counts(self, shape, state: dict | None = None) -> np.ndarray:
+        """The partial counts of the checkpoint `state` (a loaded
+        manifest): its own when it carries them, else the side file."""
+        if state is not None and "counts" in state:
+            return np.asarray(state["counts"], dtype=np.int64).reshape(shape)
         if self.counts_path.exists():
             return np.load(self.counts_path)
         return np.zeros(shape, dtype=np.int64)
 
-    def load_indels(self, L: int) -> tuple:
+    def load_indels(self, L: int, state: dict | None = None) -> tuple:
+        if state is not None and "indels" in state:
+            d = state["indels"]
+            return (np.asarray(d["ins"], dtype=np.int64),
+                    np.asarray(d["dels"], dtype=np.int64),
+                    int(d["n_gapped"]))
         if self.indels_path.exists():
             z = np.load(self.indels_path)
             return (z["ins"].astype(np.int64), z["dels"].astype(np.int64),
@@ -202,11 +227,11 @@ def streaming_align(engine, fastq, out_sam, *, resume: bool = False,
     n_profiled = state.get("profiled", 0) if state else 0
     batch_records: list = (list(state["batch_records"][:start_batch])
                            if state else [])
-    counts = (ckpt.load_counts((cfg.max_read_len, 4, 4))
+    counts = (ckpt.load_counts((cfg.max_read_len, 4, 4), state)
               if (with_profile_counts and state) else
               np.zeros((cfg.max_read_len, 4, 4), dtype=np.int64))
     if with_profile_counts and state:
-        ins, dels, n_gapped = ckpt.load_indels(cfg.max_read_len)
+        ins, dels, n_gapped = ckpt.load_indels(cfg.max_read_len, state)
     else:
         ins = np.zeros(cfg.max_read_len, dtype=np.int64)
         dels = np.zeros(cfg.max_read_len, dtype=np.int64)

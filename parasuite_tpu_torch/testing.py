@@ -10,10 +10,12 @@ import numpy as np
 
 I32MAX = 2 ** 31 - 1
 # (diagonals per row, max_candidates): every row width the select kernel is
-# built for (n_pad 32 .. 1,024), ragged and full, and results past one warp
+# built for (n_pad 32 .. 1,024 in registers, 2,048 and 4,096 in shared
+# memory), ragged and full, and results past one warp
 SELECT_CASES = [(8, 8), (32, 8), (33, 8), (64, 16), (100, 8), (112, 8),
                 (128, 8), (200, 8), (208, 8), (256, 40), (400, 8), (512, 8),
-                (777, 8), (1024, 8)]
+                (777, 8), (1024, 8), (1088, 16), (2048, 8), (3000, 40),
+                (4096, 8)]
 
 
 def select_case_rows(n: int, seed: int = 0) -> np.ndarray:

@@ -28,3 +28,27 @@ def to_port(obj):
             names = (names.blob, names.off)
         return convert.read_batch(obj.codes, obj.lengths, names, obj.quals)
     raise TypeError(f"no conversion for {type(obj)}")
+
+
+def assert_same_output(got_dir, want_dir, name):
+    """File `name` written by the port's CLI (got_dir) against the JAX
+    CLI's (want_dir): equal bytes. The one exception is the checkpoint
+    manifest of a profile pass: the port's also carries the checkpoint's
+    counts (keys "counts" and "indels", so that one rename commits them);
+    it equals the JAX manifest plus those keys, and the counts equal the
+    .counts.npy file both packages write."""
+    import json
+
+    import numpy as np
+
+    got, want = (got_dir / name).read_bytes(), (want_dir / name).read_bytes()
+    if not name.endswith(".progress.json"):
+        assert got == want, name
+        return
+    got = json.loads(got)
+    if "counts" in got:
+        np.testing.assert_array_equal(
+            got.pop("counts"),
+            np.load(got_dir / name.replace(".progress.json", ".counts.npy")))
+        assert got.pop("indels")["n_gapped"] >= 0
+    assert got == json.loads(want), name

@@ -36,6 +36,8 @@ CONFIGS = {
     "bench_L50_W5": (50, 12, 7, 16, 8, 5),
     "band1_C2": (36, 8, 2, 16, 2, 0),
     "band15_n448": (100, 8, 7, 64, 16, 7),
+    "wide_n1088": (100, 8, 17, 64, 16, 5),     # n_pad 2,048: shared memory
+    "wide_n3840": (100, 8, 30, 128, 8, 5),     # n_pad 4,096
     "L250": (250, 8, 7, 32, 16, 2),
 }
 
@@ -113,7 +115,7 @@ def test_kernels_equal_plain_on_card(cuda, name, tiny_ref):
 
 @pytest.mark.parametrize("n,C", SELECT_CASES)
 def test_select_kernel_equals_plain_at_every_width(cuda, n, C):
-    """Every row width the kernel is built for (n_pad 32 .. 1,024): ties,
+    """Every row width the kernel is built for (n_pad 32 .. 4,096): ties,
     all-I32MAX rows, one repeated diagonal; tolerance 0. The cases the
     plain version is held to the JAX package on by test_torch_kernels.py."""
     cfg = AlignConfig(max_candidates=C)
@@ -361,8 +363,9 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(cuda, tiny_ref):
         cuda_seed.select_candidates(diags.t().contiguous().t(), cfg)
     with pytest.raises(ValueError, match="fewer than max_candidates"):
         cuda_seed.select_candidates(diags[:, :4].contiguous(), cfg)
+    assert 37 * diags.shape[1] > cuda_seed.MAX_PAD   # 112 a row -> 4,144
     with pytest.raises(ValueError, match="widest row"):
-        cuda_seed.select_candidates(diags.repeat(1, 10), cfg)
+        cuda_seed.select_candidates(diags.repeat(1, 37), cfg)
     cand, _ = cuda_seed.select_candidates(diags, cfg)
     with pytest.raises(ValueError, match="lengths int32"):
         cuda_extend.extend_candidates(oriented, tlens.long(), cand, didx,

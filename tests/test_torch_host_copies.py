@@ -7,7 +7,16 @@ loads in the other, and convert.py builds the port's objects from the JAX
 package's arrays and dicts.
 
 Each case is a function of (package namespace, scratch directory) that
-returns plain data; it runs once per package."""
+returns plain data; it runs once per package.
+
+One copy differs from its original by design, in more than its imports:
+native/__init__.py builds the C++ library under a per-process name and
+renames it into place (so processes that start together never load a
+half-written file), and says so once on stderr when the build or the load
+fails; native/Makefile takes the output's name for that. What the library
+computes is held to the original's here all the same (native_library), and
+tests/test_torch_tools.py starts two processes on a directory without the
+library."""
 
 import contextlib
 import dataclasses

@@ -87,7 +87,7 @@ PALLAS_ROWS = 6
 
 @pytest.mark.parametrize("n,C", SELECT_CASES)
 def test_select_plain_equals_jax_at_every_width(n, C):
-    """n = 8 .. 1,024 (n_pad 32 .. 1,024 on the card): heavy ties, missing
+    """n = 8 .. 4,096 (n_pad 32 .. 4,096 on the card): heavy ties, missing
     seeds, all-I32MAX rows, one repeated diagonal; tolerance 0."""
     rows = select_case_rows(n)
     assert (rows[-3] == cuda_seed.I32MAX).all() and (rows[-2] == 17).all()

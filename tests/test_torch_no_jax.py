@@ -3,7 +3,8 @@ twopass, combine + twopass + align --xa --rescue-kmer, simulate /
 benchmark / cluster / sort / convert plus a combined align on the projected
 step, and the multi-device layer (dist-align in both modes, merge-shards,
 benchmark --scaling, the entry points) leave both out of sys.modules, and
-no source file of the port (nor chip_smoke.py, nor the card tests) imports
+no source file of the port (nor chip_smoke.py, nor the card tests, nor the
+measurement scripts tools/torch_*.py and tools/_torch_bench.py) imports
 either."""
 
 import os
@@ -241,9 +242,17 @@ def test_no_source_file_imports_jax():
     pattern = re.compile(
         r"\b(import|from)\s+(jax|parasuite_tpu)([\s.,]|$)", re.MULTILINE)
     files = sorted((REPO / "parasuite_tpu_torch").rglob("*.py"))
+    tools = sorted((REPO / "tools").glob("torch_*.py"))
+    tools.append(REPO / "tools" / "_torch_bench.py")
+    assert len(tools) == 9
     files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
-              REPO / "tests" / "_torch_helpers.py"]
-    assert len(files) > 30
+              REPO / "tests" / "_torch_helpers.py", *tools]
+    assert len(files) > 40
     offenders = [str(f.relative_to(REPO)) for f in files
                  if pattern.search(f.read_text())]
     assert offenders == []
+    # the port's measurement scripts do not import bench.py either: it
+    # drives the JAX package
+    bench = re.compile(r"^\s*(import|from)\s+bench\b", re.MULTILINE)
+    assert [f.name for f in [*tools, REPO / "chip_smoke.py"]
+            if bench.search(f.read_text())] == []

@@ -27,7 +27,7 @@ from parasuite_tpu_torch.pipeline import clusters as tclusters
 from parasuite_tpu_torch.pipeline.stream import streaming_align as t_stream
 
 from conftest import sample_reads
-from _torch_helpers import to_port
+from _torch_helpers import assert_same_output, to_port
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
@@ -125,6 +125,45 @@ def test_resume_byte_identical(engines, fastq, tmp_path, ext):
     assert p_res == p_full
 
 
+def test_resume_with_counts_file_ahead_of_the_manifest(engines, fastq,
+                                                       tmp_path):
+    """A kill between the counts file and the manifest (the original's
+    checkpoint is three files written in turn) leaves .counts.npy and
+    .indels.npz one batch ahead of the manifest. The port's manifest
+    carries its own counts, so the resumed run counts no batch twice; a
+    manifest without them (one the JAX package wrote) reads the files."""
+    _, teng = engines
+    full = tmp_path / "full.sam"
+    _, c_full, p_full = t_stream(teng, fastq, full, with_profile_counts=True)
+    lines = fastq.read_bytes().splitlines(keepends=True)
+    part, ahead = tmp_path / "part.sam", tmp_path / "ahead.sam"
+    for path, n in ((part, 64), (ahead, 96)):
+        fq = tmp_path / f"first{n}.fastq"
+        fq.write_bytes(b"".join(lines[: n * 4]))
+        t_stream(teng, fq, path, with_profile_counts=True)
+    manifest = Path(str(part) + ".progress.json")
+    state = json.loads(manifest.read_text())
+    assert np.asarray(state["counts"]).sum() == \
+        np.load(str(part) + ".counts.npy").sum() > 0
+    for ext in (".counts.npy", ".indels.npz"):      # one batch ahead
+        Path(str(part) + ext).write_bytes(Path(str(ahead) + ext).read_bytes())
+    manifest.write_text(json.dumps({**state, "complete": False}))
+    n, c_res, p_res = t_stream(teng, fastq, part, resume=True,
+                               with_profile_counts=True)
+    assert n == N_READS and p_res == p_full
+    np.testing.assert_array_equal(c_res, c_full)
+    assert part.read_bytes() == full.read_bytes()
+
+    # the original's manifest has no counts of its own: the files are read
+    old = {k: v for k, v in state.items() if k not in ("counts", "indels")}
+    manifest.write_text(json.dumps({**old, "complete": False}))
+    for ext in (".counts.npy", ".indels.npz"):
+        Path(str(part) + ext).write_bytes(Path(str(ahead) + ext).read_bytes())
+    _, c_old, _ = t_stream(teng, fastq, part, resume=True,
+                           with_profile_counts=True)
+    assert c_old.sum() > c_full.sum()        # the third batch counted twice
+
+
 def _cli(pkg, *argv, cwd):
     env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
     p = subprocess.run([sys.executable, "-m", f"{pkg}.cli", *map(str, argv)],
@@ -140,8 +179,8 @@ CFG_FLAGS = ["--max-read-len", "50", "--kmer-size", "8", "--band-width", "3",
 
 def test_cli_align_and_twopass_byte_identical(tmp_path, tiny_ref, fastq):
     """index, align and twopass --learned-gaps through both CLIs: index files,
-    SAMs, pass-1 SAM, .errorprofile, configs and checkpoint manifests are
-    byte-identical."""
+    SAMs, pass-1 SAM, .errorprofile and configs are byte-identical, and the
+    checkpoint manifests equal but for the counts the port's also carry."""
     from parasuite_tpu.io.fasta import write_fasta
 
     write_fasta(tmp_path / "ref.fa",
@@ -169,7 +208,11 @@ def test_cli_align_and_twopass_byte_identical(tmp_path, tiny_ref, fastq):
                  "tp.sam", "tp.sam.config.json", "idx.config.json"]:
         assert name in names
     for name in names:
-        assert (td / name).read_bytes() == (jd / name).read_bytes(), name
+        assert_same_output(td, jd, name)
+    assert "counts" in json.loads(
+        (td / "tp.sam.pass1.sam.progress.json").read_text())
+    assert "counts" not in json.loads(
+        (td / "al.sam.progress.json").read_text())
 
 
 def _helper_case(name, engines, tiny_ref, cfg, t_cfg):
