@@ -10,15 +10,22 @@ each prints one line, and any failure raises (exit code != 0):
   1. environment: CUDA present, the package present, GPU name and power
      limit, torch / CUDA / nvcc / Triton versions; the port's own C++ host
      library (parasuite_tpu_torch/native) built and loaded;
-  2. build: both CUDA kernels compiled from parasuite_tpu_torch/csrc;
+  2. build: both CUDA kernels compiled from parasuite_tpu_torch/csrc; for
+     each band width of the extend kernel, ptxas' registers and spills and
+     the count of its DPX instructions in the SASS (cuobjdump): it fails on
+     a spill or on a width without VIMNMX3 and VIADDMNMX
+     (extend_build_report);
   3. world: reference, k-mer index (through the port's CLI) and 262,144
      reads with truth, written under .smoke/;
   4. kernels vs plain: on real stage inputs of 16,384 reads each kernel is
      array-equal to its plain PyTorch version (tolerance 0: integer
-     outputs); median times of both, and the kernels alone at 65,536 reads,
-     each beside its bound (select_bound, extend_bound: the larger of bytes
-     over the memory rate and operations over the int32 rate) — a kernel
-     faster than its bound is a miscount and fails; then the select kernel
+     outputs); median times of both, and the kernels alone at 65,536 reads
+     (timed call by call, and per call over 20 back to back), each beside
+     its bound (select_bound, extend_bound: the larger of bytes
+     over the memory rate and operations over their rate; extend counts 6
+     a DP cell, bound_ops_per_cell) — a kernel faster than its bound is a
+     miscount and fails; the extend kernel's launch shape and blocks
+     resident per SM (extend_occupancy); then the select kernel
      against its plain version at every row width it is built for
      (SELECT_CASES on select_case_rows: ties, all-I32MAX rows, one repeated
      diagonal);
@@ -438,9 +445,14 @@ PACKED_KEYS = ("packed_batches", "packed_entries", "packed_junctions",
                "packed_overflow")
 # published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
 # and the int32 add/min/max rate — 64 lanes per SM per clock, a quarter of
-# the 67 TFLOP/s float32 figure (128 lanes, 2 flop per FMA)
+# the 67 TFLOP/s float32 figure (128 lanes, 2 flop per FMA); the instruction
+# rate, one warp instruction per clock on each of an SM's four schedulers
+# (128 lanes per clock, half the float32 figure), bounds instructions of any
+# type
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
+INSTR_OPS_PER_S = 67e12 / 2
+EXTEND_OPS_PER_CELL = 6
 
 
 def sha256(path) -> str:
@@ -570,11 +582,12 @@ def accuracy(sam_path, truth: dict) -> dict:
             "precision": float(correct.sum() / max(int(mapped.sum()), 1))}
 
 
-def _bound(n_bytes: int, n_ops: int) -> dict:
+def _bound(n_bytes: int, n_ops: int,
+           ops_per_s: float = INT32_OPS_PER_S) -> dict:
     """The least time an H100 could take: bytes over the memory rate or
-    int32 operations over their rate, whichever is larger (ms)."""
+    operations over their rate, whichever is larger (ms)."""
     by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * n_ops / INT32_OPS_PER_S
+    by_ops = 1e3 * n_ops / ops_per_s
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bound_bytes": int(n_bytes), "bound_ops": int(n_ops)}
@@ -592,15 +605,33 @@ def select_bound(rows: int, n: int, C: int) -> dict:
 def extend_bound(lengths: np.ndarray, C: int, L: int, W: int, G: int) -> dict:
     """Bytes: oriented reads int32 [2B, L], lengths, candidates int32
     [2B, C], the reference windows (L + 2W bytes a pair, at most the whole
-    reference), both score tables, four int32 [2B, C] outputs. Operations:
-    10 add/max per cell of the M / Ix / Iy / ungapped recurrence, over
-    2W + 1 cells a row and as many rows as the read is long."""
+    reference), both score tables, four int32 [2B, C] outputs.
+
+    Operations: EXTEND_OPS_PER_CELL = 6 int32 operations per cell of the
+    M / Ix / Iy / ungapped recurrence, over 2W + 1 cells a row and as many
+    rows as the read is long. With T = max(M, Ix, Iy) of the row above, a
+    cell needs M = sub + T and ug += sub (two adds: every M and every ug is
+    a distinct sum), mg = M - go (one add, shared by both gap states), the
+    Iy walk max(Iy[j-1] - ge, mg[j-1]) and the next row's Ix
+    max(Ix[j+1] - ge, mg[j+1]) (one DPX add-max each, __viaddmax_s32) and
+    the next row's T (one three-way max, __vimax3_s32). The earlier count
+    was 10 (each add and max on its own), at the int32 rate; but three of
+    the six are adds, which the compiler may emit as IMAD on the FMA pipe,
+    so the rate that bounds any kernel is the instruction rate
+    (INSTR_OPS_PER_S; the three max operations at the int32 rate give the
+    same time). Both other counts are in the result for comparison:
+    bound_ms_int32_pipe (6 at the int32 rate) and bound_ms_10_ops (the
+    earlier count)."""
     B = int(lengths.shape[0])
     pairs = 2 * B * C
     cells = 2 * C * (2 * W + 1) * int(np.minimum(lengths, L).sum())
     n_bytes = (2 * B * L * 4 + B * 4 + pairs * 4
                + min(G, pairs * (L + 2 * W)) + 2 * L * 25 * 4 + 4 * pairs * 4)
-    return _bound(n_bytes, 10 * cells)
+    return {**_bound(n_bytes, EXTEND_OPS_PER_CELL * cells, INSTR_OPS_PER_S),
+            "bound_ops_per_cell": EXTEND_OPS_PER_CELL, "bound_cells": cells,
+            "bound_ms_int32_pipe": _bound(n_bytes, EXTEND_OPS_PER_CELL * cells)
+            ["bound_ms"],
+            "bound_ms_10_ops": _bound(n_bytes, 10 * cells)["bound_ms"]}
 
 
 def _against_bound(name: str, ms: float, bound: dict,
@@ -670,16 +701,51 @@ def build() -> None:
     regs = [line.strip() for line in _build.build_log.splitlines()
             if "registers" in line]
     # the same sources through one nvcc call, for the cost of not building
-    # them in parallel (the library it writes is thrown away)
+    # them in parallel (the library it writes is thrown away); its ptxas
+    # report is the extend kernel's, whether or not build() had to compile
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
-        subprocess.run([_build.nvcc_path(), *_build.FLAGS, "-shared", "-o",
-                        str(Path(tmp) / "one.so"),
-                        *map(str, _build._sources())], check=True,
-                       capture_output=True, timeout=900)
+        one = subprocess.run([_build.nvcc_path(), *_build.FLAGS, "-shared",
+                              "-o", str(Path(tmp) / "one.so"),
+                              *map(str, _build._sources())], check=True,
+                             capture_output=True, text=True, timeout=900)
     phase("build", seconds=seconds,
           one_nvcc_seconds=round(time.perf_counter() - t0, 3),
-          library=str(_build.LIB.relative_to(REPO)), ptxas=regs)
+          library=str(_build.LIB.relative_to(REPO)), ptxas=regs,
+          extend_kernel=extend_build_report(one.stdout + one.stderr))
+
+
+def extend_build_report(log: str) -> dict:
+    """Per band width W of the extend kernel: ptxas' registers, stack and
+    spills, and the DPX instructions in its SASS (cuobjdump). Fails unless
+    all eight widths are there, none spills, and each holds VIMNMX3 and
+    VIADDMNMX (the three-way max and the add-max: nothing emulated)."""
+    import re
+
+    from parasuite_tpu_torch.ops import _build
+
+    def by_w(report: dict) -> dict:
+        out = {}
+        for sym, v in report.items():
+            m = re.search(r"extend_kernelILi(\d+)E", sym)
+            if m:
+                out[(int(m.group(1)) - 1) // 2] = v
+        return out
+
+    ptxas, sass = by_w(_build.ptxas_report(log)), by_w(_build.sass_opcodes())
+    report = {w: {**ptxas.get(w, {}),
+                  **{op: sass.get(w, {}).get(op, 0)
+                     for op in ("VIMNMX3", "VIADDMNMX", "LDS", "IADD3",
+                                "IMAD")}}
+              for w in range(8)}
+    bad = {w: r for w, r in report.items()
+           if "registers" not in r or r.get("spill_stores", 1)
+           or r.get("spill_loads", 1) or not r["VIMNMX3"]
+           or not r["VIADDMNMX"]}
+    if bad:
+        raise AssertionError(f"extend kernel: spills, a missing width or no "
+                             f"DPX instruction: {bad}")
+    return report
 
 
 def world() -> dict:
@@ -804,6 +870,16 @@ def kernels_vs_plain(engine, gpu: str) -> list[dict]:
         "extend_candidates": _median_ms(
             lambda: cuda_extend.extend_candidates(oriented, lens, cand, didx,
                                                   sprof, cfg))}
+    # the same calls back to back: the card's own time, the host's enqueue
+    # of each call hidden behind the one before
+    b2b_batch = {name: _median_ms(lambda: [fn() for _ in range(20)],
+                                  reps=5) / 20
+                 for name, fn in (
+                     ("select_candidates",
+                      lambda: cuda_seed.select_candidates(diags, cfg)),
+                     ("extend_candidates",
+                      lambda: cuda_extend.extend_candidates(
+                          oriented, lens, cand, didx, sprof, cfg)))}
     bound_batch = bounds(BATCH, int(diags.shape[1]))
     plain_batch = {
         "select_candidates": _median_ms(
@@ -816,9 +892,39 @@ def kernels_vs_plain(engine, gpu: str) -> list[dict]:
         k["plain_ms_65536"] = plain_batch[k["name"]]
         k.update(_against_bound(k["name"], k["ms_65536"],
                                 bound_batch[k["name"]], "_65536"))
+        k["ms_65536_back_to_back"] = b2b_batch[k["name"]]
+        k["share_of_bound_65536_back_to_back"] = _against_bound(
+            k["name"], b2b_batch[k["name"]], bound_batch[k["name"]])[
+                "share_of_bound"]
+        if k["name"] == "extend_candidates":
+            for n in (N_PIN, BATCH):
+                k[f"occupancy_{n}"] = extend_occupancy(cfg, 2 * n)
         phase("kernel", **k, gpu=gpu)
     select_widths_equal_plain(dev, gpu)
     return out
+
+
+def extend_occupancy(cfg, rows: int) -> dict:
+    """The extend kernel's launch at cfg's shape over `rows` oriented reads:
+    threads and shared memory a block, blocks resident per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and the waves the grid
+    takes on this card."""
+    import ctypes
+
+    import torch
+
+    from parasuite_tpu_torch.ops import _build
+
+    out = (ctypes.c_int * 3)()
+    err = _build.load().ps_extend_occupancy(
+        cfg.max_candidates, cfg.max_read_len, cfg.band_width, out)
+    if err != 0:
+        raise AssertionError(f"ps_extend_occupancy: CUDA error {err}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = -(-rows * cfg.max_candidates // out[0])
+    return {"threads": out[0], "smem_bytes": out[1], "blocks_per_sm": out[2],
+            "sms": sms, "blocks": blocks,
+            "waves": blocks / (out[2] * sms)}
 
 
 def select_widths_equal_plain(dev, gpu: str) -> None:
@@ -1111,6 +1217,7 @@ def _kernels_equal_plain(didx, sprof, cfg, codes, lengths) -> dict:
                         o, ln, cand, didx, sprof, cfg), reps=3)}
     return {"max_abs_err": errs, "diagonals_per_row": int(d.shape[1]),
             "rows": int(d.shape[0]),
+            "extend_occupancy": extend_occupancy(cfg, int(d.shape[0])),
             **{name: {"ms": ms[name], "plain_ms": plain_ms[name],
                       **_against_bound(name, ms[name], bound[name])}
                for name in ms}}

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -92,6 +93,51 @@ def build() -> Path:
     return LIB
 
 
+def ptxas_report(log: str) -> dict:
+    """nvcc's -Xptxas -v output -> {kernel symbol: {registers, stack,
+    spill_stores, spill_loads}}."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_opcodes(lib: Path = LIB) -> dict:
+    """cuobjdump -sass of the built library -> {kernel symbol: {opcode:
+    count}}, the opcode without its modifiers (VIADDMNMX.U32 -> VIADDMNMX).
+    cuobjdump sits beside nvcc."""
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     line)
+        if m and name:
+            op = m.group(1).split(".")[0]
+            out[name][op] = out[name].get(op, 0) + 1
+    return out
+
+
 def load() -> ctypes.CDLL:
     """The loaded kernel library (building it first if needed)."""
     global _lib
@@ -104,5 +150,7 @@ def load() -> ctypes.CDLL:
                                          ptr]
     lib.ps_extend_candidates.restype = i32
     lib.ps_extend_candidates.argtypes = [ptr] * 6 + [i32] * 7 + [ptr] * 5
+    lib.ps_extend_occupancy.restype = i32
+    lib.ps_extend_occupancy.argtypes = [i32, i32, i32, ptr]
     _lib = lib
     return lib

@@ -6,21 +6,31 @@ extend_candidates = oracle.banded_dp — banded glocal M/Ix/Iy DP over every
 (oriented read, candidate diagonal) pair plus the running ungapped diagonal
 sum; per pair (dp_score, dp_j, ug_score, ug_j), smallest j on ties.
 
-Kernel (csrc/extend_candidates.cu): one thread per pair, the band's
-M/Ix/Iy/ug in registers (the band width is a template parameter, so every
-band index is static), s_fwd/s_comp staged in shared memory, reference bases
-read as int8 through a register window that slides one base per read
-position. Iy is the sequential band walk Iy[j] = max(M[j-1] - go,
+Kernel (csrc/extend_candidates.cu, redesigned for the H100): one thread
+per pair, the band width a template parameter, so every band index is
+static. Iy is the sequential band walk Iy[j] = max(M[j-1] - go,
 Iy[j-1] - ge), which in exact int32 equals the cummax form of the
 reference.
 
-What bounds it on the H100: integer ALU work, ~L * band * 15 operations per
-pair (50 * 11 * 15 = 8k at the bench config, 1,048,576 pairs per 65,536-read
-batch). Memory traffic is small — L + band reference bytes and L read codes
-per pair, with the C candidates of one read sharing their read row in L1.
-The design spends no shared-memory traffic on the DP state (registers only)
-and stops each thread at its read's length, since steps past it change
-neither M nor the ungapped sum.
+What bounds it on the H100: integer instructions. With Hopper's DPX
+instructions a cell takes six int32 operations: M = s + T, ug += s,
+mg = M - go, Iy and the next row's Ix each one add-then-max
+(__viaddmax_s32) on the same mg, and the next row's T = max(M, Ix, Iy) one
+three-way max (__vimax3_s32) (chip_smoke.py extend_bound: 50 * 11 * 6 =
+3,300 a pair at the bench config, 1,048,576 pairs per 65,536-read batch). Memory traffic is small:
+L + 2W reference bytes a pair and one read row per oriented read.
+
+What the design does about it: each input is staged once per block in
+shared memory (a score row int32 [L, 5] per oriented read, built from its
+read and the strand's table, so the C candidates share it and the DP loop
+has no prof arithmetic; each pair's reference window copied by cp.async,
+a warp's 32 windows in flight at once while the rows are built, with N
+written outside [0, G), so the loop has no bounds test and no global
+load); a register window of shared-memory offsets makes each substitution
+one load with an immediate offset; the read loop is unrolled band-width
+times, so the window's slide and the row-to-row state are register
+renaming; each thread stops at its read's length, since steps past it
+change neither M nor the ungapped sum.
 """
 
 from __future__ import annotations

@@ -1,5 +1,8 @@
 """The port's CUDA kernels on the card: each kernel against its plain
-PyTorch version; align_batch, align_batch_with_candidates, a rescue engine
+PyTorch version (the extend kernel at every band width it is built for, on
+testing.extend_case's edge cases, and on one 65,536-read batch at the bench
+config; its SASS holds the DPX instructions at every width); align_batch,
+align_batch_with_candidates, a rescue engine
 and CombinedEngine on the card against the same run on CPU tensors; the
 data-parallel step and the chromosome-sharded step on the card (one card
 given twice, so each kernel launches twice a call) against the same steps
@@ -10,6 +13,8 @@ JAX installed (PARASUITE_TEST_TPU=1 keeps conftest.py from importing jax):
 
     PARASUITE_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -q
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -22,7 +27,8 @@ from parasuite_tpu_torch.ops import aligner as tx
 from parasuite_tpu_torch.ops import cuda_extend, cuda_seed
 from parasuite_tpu_torch.ops.device_index import (DeviceIndex, ScoreParams,
                                                   min_scores_host)
-from parasuite_tpu_torch.testing import SELECT_CASES, select_case_rows
+from parasuite_tpu_torch.testing import (EXTEND_CASES, SELECT_CASES,
+                                         extend_case, select_case_rows)
 
 from conftest import sample_reads
 from _torch_helpers import to_port
@@ -125,6 +131,86 @@ def test_select_kernel_equals_plain_at_every_width(cuda, n, C):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("W,L", EXTEND_CASES)
+def test_extend_kernel_equals_plain_at_every_band_width(cuda, W, L):
+    """Every band width W = 0..7 at L = 36 and 50: learned tables that
+    differ by strand, go == ge at even W, reads of length 0 and shorter than
+    L, an all-N read, diagonals off both ends, ties for the best j (the
+    cases test_torch_extend_recurrence.py holds the plain version and the
+    kernel's arithmetic to the JAX package on); tolerance 0."""
+    c = extend_case(W, L)
+    cfg = AlignConfig(max_read_len=L, band_width=W,
+                      max_candidates=c["cand"].shape[1], gap_open=c["go"],
+                      gap_extend=c["ge"], chrom_spacer=L + 2 * W)
+    zeros = np.zeros(1, dtype=np.int32)
+    didx = DeviceIndex.from_numpy(c["ref"], zeros, zeros, zeros, zeros,
+                                  device=cuda)
+    sprof = ScoreParams.from_numpy(c["s_fwd"], c["s_comp"],
+                                   np.zeros(256, dtype=np.int32), device=cuda)
+    args = [torch.from_numpy(c[k]).to(cuda)
+            for k in ("oriented", "lengths", "cand")]
+    n_ext = cuda_extend.launches
+    got = cuda_extend.extend_candidates(*args, didx, sprof, cfg)
+    assert cuda_extend.launches == n_ext + 1
+    want = cuda_extend.extend_candidates_plain(*args, didx, sprof, cfg)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dp_score", "dp_j", "ug_score", "ug_j"), got,
+                          want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+def test_extend_kernel_equals_plain_on_a_bench_batch(cuda):
+    """One 65,536-read batch at the bench config (L = 50, k = 12, C = 8,
+    W = 5) on a 2 Mbp random reference: reads with substitutions and 1%
+    deletions, half reverse strand, 256 all-N; candidates by the select
+    kernel; tolerance 0."""
+    cfg = AlignConfig(max_read_len=50, kmer_size=12, batch_size=65_536,
+                      max_candidates=8, max_occ=16)
+    rng = np.random.default_rng(65_536)
+    ref = PackedReference.from_dict(
+        {"chr1": rng.integers(0, 4, 2_000_000).astype(np.int8)},
+        spacer=cfg.chrom_spacer)
+    n, L = 65_536, 50
+    start = ref.starts[0] + rng.integers(0, 2_000_000 - L - 1, n)
+    col = np.arange(L)[None, :]
+    deletion = (rng.random(n) < 0.01)[:, None] & (col >= 25)
+    reads = ref.seq[start[:, None] + col + deletion]
+    sub = rng.random((n, L)) < 0.01
+    reads = np.where(sub, (reads + 1) % 4, reads)
+    rev = rng.random(n) < 0.5
+    reads[rev] = 3 - reads[rev, ::-1]               # no N: inside chr1
+    reads[:256] = 4
+    didx = DeviceIndex.from_host(ref, KmerIndex.build(ref.seq, 12), cuda)
+    sprof = ScoreParams.from_tensor(flat_score_tensor(cfg, L), cfg, cuda)
+    lens = torch.full((n,), L, dtype=torch.int32, device=cuda)
+    oriented = tx.orient_reads(torch.from_numpy(reads.astype(np.int8))
+                               .to(cuda), lens)
+    diags = tx.seed_diagonals(oriented, lens, didx, cfg)
+    cand, _ = cuda_seed.select_candidates(diags, cfg)
+    got = cuda_extend.extend_candidates(oriented, lens, cand, didx, sprof,
+                                        cfg)
+    want = cuda_extend.extend_candidates_plain(oriented, lens, cand, didx,
+                                               sprof, cfg)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((got[0] > got[2]).sum()) > 0     # gapped winners exist
+
+
+def test_extend_kernel_uses_dpx_at_every_band_width(cuda):
+    """cuobjdump -sass of the built library: the extend kernel of every
+    band width holds VIMNMX3 (three-way max) and VIADDMNMX (add-max), so
+    the DPX intrinsics are not emulated."""
+    from parasuite_tpu_torch.ops import _build
+
+    _build.load()
+    ops = {int(m.group(1)): v for sym, v in _build.sass_opcodes().items()
+           if (m := re.search(r"extend_kernelILi(\d+)E", sym))}
+    assert sorted(ops) == [2 * w + 1 for w in range(8)]
+    for band, v in ops.items():
+        assert v.get("VIMNMX3", 0) > 0 and v.get("VIADDMNMX", 0) > 0, band
 
 
 @pytest.mark.parametrize("name", ["bench_L50_W5", "band15_n448"])
