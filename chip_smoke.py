@@ -118,15 +118,33 @@ each prints one line, and any failure raises (exit code != 0):
  24. shards_k15: phase 16's world again at k = 15, where the replicated
      candidate list saturates on no read, so the sharded and the replicated
      step must agree in all nine fields on all 65,536 reads
-     (SHARDS_K15_PINNED).
+     (SHARDS_K15_PINNED);
+ 25. bench_leg: bench_torch.py's main at full size (1,048,576 reads of
+     50 bp, batch 65,536): the device leg, the end-to-end leg, the rerun and
+     suspect rules and the CPU leg in its subprocess; its one JSON line
+     (every key of bench.py's, and the GPU line); sensitivity, precision,
+     n_unmapped and n_mismapped equal the JAX package's bench.run_throughput
+     on the same reads (BENCH_LEG_PINNED);
+ 26. dist_bench: tools/torch_bench_distributed.py at 65,536 reads and one
+     round: one and two processes of `dist-align --coordinator` on its 2 Mbp
+     world; the records add up and the two-process merged SAM and
+     .errorprofile are the one-process run's bytes;
+ 27. shards_scale: tools/torch_bench_shards_scale.py at full size, the
+     200 Mbp two-chromosome genome on a 2 x 2 data x index mesh (the card
+     given four times on a one-card machine), 2,048 reads: the dominance
+     counts and the sensitivity equal the JAX tool's record
+     (torch_bench_shards_scale.PINNED).
 Phase 4 also holds the select kernel's shared-memory path (rows of 2,048 and
 4,096 entries) to the plain version, as the select_wide line.
-Phases 7-9, 11, 13-22 and 24 run on the card and check the exact kernel
+Phases 7-9, 11, 13-22 and 24-27 run on the card and check the exact kernel
 launch counts of their runs; phases 10 and 12 launch none, and phase 23's
-launches happen in its own subprocesses and are not counted here.
+launches happen in its own subprocesses and are not counted here (those of
+phase 26's processes are, from their JSON lines; the CPU leg of phase 25
+runs the plain versions). Every phase line carries elapsed_seconds, the
+time since the run started.
 
-Then one JSON line on the kernels (launches summed over phases 5-24, those
-of phase 15's processes included), a check that neither jax nor the JAX
+Then one JSON line on the kernels (launches summed over phases 5-27, those
+of phases 15 and 26's processes included), a check that neither jax nor the JAX
 package was imported, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -195,8 +213,8 @@ build_sharded_index(seqs, 2, cfg) and make_sharded_step(cfg, make_mesh2(1,
 length 50, over the reads in chunks of 4,096; chip_smoke.shards_digest of
 the concatenated outputs at n = 16,384 and n = 65,536.
 
-The pins of phases 19-24 come from the JAX package's own tools on the
-CPU; the comment above SWEEP_PINNED names the function behind each. The
+The pins of phases 19-25 and 27 come from the JAX package's own tools on
+the CPU; the comment above SWEEP_PINNED names the function behind each. The
 worlds are the port's (tools/_torch_bench.py, sim/), which give the JAX
 simulator's reads bit for bit.
 
@@ -234,7 +252,7 @@ sys.path.insert(0, str(REPO / "tools"))
 
 import _torch_bench as tb                                   # noqa: E402
 from _torch_bench import (N_PIN, READ_LEN, REF_LEN,         # noqa: E402,F401
-                          bench_chrom, draw_reads, gpu_line, write_world)
+                          bench_chrom, draw_reads, write_world)
 
 N_READS = tb.SMOKE_READS    # 262,144: 4 batches of 65,536
 BATCH = 65_536              # bench.BATCH_TPU
@@ -415,6 +433,12 @@ N_GENOME_READS = {"chr22_class_51Mbp": 65_536, "multi_chrom_200Mbp": 262_144}
 RESCUE_SENS_PINNED = {"sensitivity": 0.9299, "precision": 0.9996,
                       "mapped_frac": 0.9303, "n_reads": 131072,
                       "rescue_mapped": 3831, "rescue_overflow": 0}
+# bench.run_throughput(bench.make_cfg(), 1048576, 65536, 20000000,
+# check_accuracy=True) under JAX_PLATFORMS=cpu (the numbers BENCH_r05.json
+# also holds; they depend on no hardware)
+BENCH_LEG_PINNED = {"sensitivity": 0.9914, "precision": 1.0,
+                    "n_unmapped": 8985, "n_mismapped": 13}
+N_DIST_BENCH_READS = 65_536
 N_SCALE_READS = 524_288
 SCALE_PINNED = {
     "clusters": 24311, "alignments": 517684,
@@ -463,8 +487,12 @@ def sha256(path) -> str:
     return h.hexdigest()
 
 
+T_START = time.perf_counter()
+
+
 def phase(label: str, /, **fields) -> None:
-    print(json.dumps({"phase": label, **fields}), flush=True)
+    print(json.dumps({"phase": label, **fields, "elapsed_seconds": round(
+        time.perf_counter() - T_START, 3)}), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -658,22 +686,16 @@ def environment() -> str:
     if not (REPO / "parasuite_tpu_torch" / "csrc").is_dir():
         raise SystemExit(f"chip_smoke: no parasuite_tpu_torch package beside "
                          f"{Path(__file__).name} — run it from the repo root")
-    gpu = gpu_line()
-    from parasuite_tpu_torch.ops._build import nvcc_path
-
-    nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True,
-                          text=True, timeout=60).stdout.strip().splitlines()
+    env = tb.environment("cuda")
     try:
         import triton
         triton_version = triton.__version__
     except ImportError:
         triton_version = "not installed"
-    print(gpu, flush=True)
-    phase("environment", gpu=gpu, torch=torch.__version__,
-          cuda=torch.version.cuda, nvcc=nvcc[-1] if nvcc else "",
-          triton=triton_version, python=sys.version.split()[0],
-          native=native_library())
-    return gpu
+    print(env["gpu"], flush=True)
+    phase("environment", **env, triton=triton_version,
+          python=sys.version.split()[0], native=native_library())
+    return env["gpu"]
 
 
 def native_library() -> bool:
@@ -2079,6 +2101,90 @@ def scale_phase(gpu: str) -> None:
         raise AssertionError(f"scale: {stats}")
 
 
+def bench_leg_phase(gpu: str) -> dict:
+    """bench_torch.py's main at full size on the card: its line, its
+    launches (one warm-up batch and three rounds of 16 batches a device leg,
+    one or two device legs; a warm-up run and five timed runs of 16 batches
+    end to end), and its accuracy against the JAX package's
+    (BENCH_LEG_PINNED)."""
+    import bench_torch
+
+    _reset_counters()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_torch.main(["--device", "cuda"])
+    if rc != 0:
+        raise AssertionError(f"bench_leg: bench_torch.main exited {rc}")
+    out = buf.getvalue().strip().splitlines()
+    if len(out) != 1:
+        raise AssertionError(f"bench_leg: {len(out)} lines, want one")
+    line = json.loads(out[0])
+    launches = _counters()
+    n_b = _n_batches(bench_torch.N_READS, bench_torch.BATCH)
+    legs = 2 if line["rerun_triggered"] else 1
+    want = (legs * (1 + bench_torch.TIMED_ROUNDS * n_b)
+            + (1 + bench_torch.E2E_ROUNDS) * n_b)
+    got = {k: line[k] for k in BENCH_LEG_PINNED}
+    phase("bench_leg", line=line, pinned=BENCH_LEG_PINNED,
+          launches=launches, seconds=round(time.perf_counter() - t0, 3),
+          gpu=gpu)
+    if got != BENCH_LEG_PINNED:
+        raise AssertionError(f"bench_leg: accuracy {got}, the JAX "
+                             f"package's {BENCH_LEG_PINNED}")
+    if line["gpu"] != gpu or line["n_reads"] != 1_048_576:
+        raise AssertionError(f"bench_leg: ran {line}")
+    _expect_launches(launches, want, "bench_leg")
+    return launches
+
+
+def dist_bench_phase(gpu: str) -> dict:
+    """tools/torch_bench_distributed.py at N_DIST_BENCH_READS reads and one
+    round (more if its efficiency rule remeasures): the tool fails unless
+    the records add up and the two-process output has the one-process
+    output's bytes; each process's launches come from its JSON line, one a
+    batch of 8,192 reads."""
+    import torch_bench_distributed as tbd
+
+    t0 = time.perf_counter()
+    line = tbd.measure(N_DIST_BENCH_READS, "cuda", rounds=1)
+    launches = line["launches"]
+    rounds = len(line["rounds_1proc"])
+    phase("dist_bench", line=line, launches=launches,
+          seconds=round(time.perf_counter() - t0, 3), gpu=gpu)
+    if not line["same_output"] or line["gpu"] != gpu:
+        raise AssertionError(f"dist_bench: {line}")
+    _expect_launches(launches, 2 * rounds * _n_batches(N_DIST_BENCH_READS,
+                                                       tbd.BATCH),
+                     "dist_bench")
+    return launches
+
+
+def shards_scale_phase(gpu: str) -> dict:
+    """tools/torch_bench_shards_scale.py at full size: the 200 Mbp genome on
+    a 2 x 2 mesh, 2,048 reads; every count pinned to the JAX tool's record.
+    One launch of each kernel for the replicated step, and four (one a mesh
+    cell) for each of the sharded step's two calls."""
+    import torch
+
+    import torch_bench_shards_scale as tss
+
+    t0 = time.perf_counter()
+    _reset_counters()
+    line = tss.measure("cuda", tss.FULL_LEN, tss.FULL_READS)
+    launches = _counters()
+    bad = tss.pin_check(line)
+    phase("shards_scale", line=line, pinned=tss.PINNED, launches=launches,
+          seconds=round(time.perf_counter() - t0, 3), gpu=gpu)
+    torch.cuda.empty_cache()
+    if bad or line["total_ref_len"] < tss.FULL_LEN:
+        raise AssertionError(f"shards_scale: differs from the JAX tool's "
+                             f"record: {bad}")
+    _expect_launches(launches, 1 + 2 * tss.N_DATA * tss.N_INDEX,
+                     "shards_scale")
+    return launches
+
+
 def main() -> int:
     gpu = environment()
     build()
@@ -2116,6 +2222,11 @@ def main() -> int:
     scale_phase(gpu)
     runs.append(shards_phase(gpu, k=15, label="shards_k15",
                              pins=SHARDS_K15_PINNED, all_equal=True))
+    torch.cuda.empty_cache()
+    # the scripts that drive the port as bench.py and the two distributed
+    # tools drive the JAX package
+    runs += [bench_leg_phase(gpu), dist_bench_phase(gpu),
+             shards_scale_phase(gpu)]
     for k in kernels:
         k["launches"] = sum(r[k["name"]] for r in runs)
     foreign = sorted(m for m in sys.modules

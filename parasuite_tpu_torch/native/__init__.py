@@ -25,7 +25,7 @@ import numpy as np
 
 _DIR = Path(__file__).resolve().parent
 _LIB_PATH = _DIR / "libparasuite_native.so"
-_ABI = 4
+_ABI = 5
 _lib = None
 _tried = False
 
@@ -316,19 +316,25 @@ def bam_sort(in_path, out_path, header_blob: bytes, min_mapq: int = 0,
     stable external sort -> BGZF deflate), byte-identical to
     io.bam.coordinate_sort's Python path (tests/test_bam.py). header_blob is
     the full output BAM header bytes (magic + SO:coordinate text + ref
-    dictionary), built by the caller. Returns records written."""
+    dictionary), built by the caller. Returns records written.
+
+    Past max_in_memory records the sorted runs spill into the output's own
+    directory, as files unlinked as soon as they are made; a directory that
+    cannot take them makes the sort raise RuntimeError."""
     lib = _load()
     if lib is None:
         raise RuntimeError("native library unavailable")
     if not hasattr(lib.ps_bam_sort, "_configured"):
         lib.ps_bam_sort.restype = ctypes.c_int64
         lib.ps_bam_sort.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
-                                    ctypes.c_char_p, ctypes.c_int64,
+                                    ctypes.c_char_p, ctypes.c_char_p,
+                                    ctypes.c_int64,
                                     ctypes.c_int32, ctypes.c_int32,
                                     ctypes.c_int64, ctypes.c_int32]
         lib.ps_bam_sort._configured = True
+    spill_dir = os.path.dirname(os.fspath(out_path)) or "."
     n = lib.ps_bam_sort(str(in_path).encode(), str(out_path).encode(),
-                        header_blob, len(header_blob),
+                        spill_dir.encode(), header_blob, len(header_blob),
                         int(min_mapq), int(bool(mapped_only)),
                         int(max_in_memory), int(level))
     if n == -1:

@@ -9,18 +9,23 @@
 // the 50M-read streaming configs. Exposed as a plain C ABI consumed via
 // ctypes (no pybind11 in this environment); the numpy fallbacks in
 // index/kmer.py and io/fastq.py produce bit-identical outputs (enforced by
-// tests/test_native.py and tests/test_torch_host_copies.py).
+// tests/test_native.py and tests/test_torch_host_copies.py). It differs from
+// the original in one place: ps_bam_sort spills its sorted runs into a
+// directory the caller names (the output's own), through unlinked mkstemp
+// files, and closes every run file when a write fails (ABI 5).
 //
 // Build: make -C parasuite_tpu_torch/native   ->  libparasuite_native.so
 
 #include <cstdint>
 #include <cstring>
 #include <cstdio>
+#include <string>
 #include <algorithm>
 #include <queue>
 #include <thread>
 #include <vector>
 
+#include <unistd.h>
 #include <zlib.h>
 
 extern "C" {
@@ -168,7 +173,7 @@ int64_t ps_fastq_scan(const char* buf, int64_t len, int64_t max_reads,
 }
 
 // library version tag for the ctypes wrapper's compatibility check
-int32_t ps_abi_version(void) { return 4; }
+int32_t ps_abi_version(void) { return 5; }
 
 // ---------------------------------------------------------------------------
 // SAM cluster-ingestion scanner (SURVEY.md §3.5; BASELINE config 5 scale).
@@ -1121,7 +1126,13 @@ struct RunReader {
 extern "C" {
 
 // Returns records written, or: -1 malformed input, -2 I/O error.
+// Runs past max_in_memory records spill to spill_dir (the caller passes the
+// output's directory, which must hold the output anyway; the system temp
+// directory may be far smaller): each run file is made by mkstemp there and
+// unlinked at once, so it lives only as an open handle and a crash leaves
+// nothing behind.
 int64_t ps_bam_sort(const char* in_path, const char* out_path,
+                    const char* spill_dir,
                     const uint8_t* header_blob, int64_t header_len,
                     int32_t min_mapq, int32_t mapped_only,
                     int64_t max_in_memory, int32_t level) {
@@ -1159,9 +1170,23 @@ int64_t ps_bam_sort(const char* in_path, const char* out_path,
     uint64_t arrival = 0;
     bool bad = false, io_bad = false;
 
+    // <spill_dir>/.<output's name>.sortrun.XXXXXX
+    const char* slash = std::strrchr(out_path, '/');
+    const std::string run_name =
+        "/." + std::string(slash ? slash + 1 : out_path) + ".sortrun.XXXXXX";
+    auto open_run = [&]() -> FILE* {
+        std::string tmpl = std::string(spill_dir) + run_name;
+        const int fd = mkstemp(&tmpl[0]);
+        if (fd < 0) return nullptr;
+        unlink(tmpl.c_str());
+        FILE* rf = fdopen(fd, "w+b");
+        if (!rf) close(fd);
+        return rf;
+    };
+
     auto spill_run = [&]() -> bool {
         std::sort(keys.begin(), keys.end(), key_less);
-        FILE* rf = tmpfile();
+        FILE* rf = open_run();
         if (!rf) return false;
         std::vector<uint8_t> ob;
         ob.reserve(8 << 20);
@@ -1172,13 +1197,19 @@ int64_t ps_bam_sort(const char* in_path, const char* out_path,
             ob.insert(ob.end(), arena.data() + k.arena_off,
                       arena.data() + k.arena_off + ln);
             if (ob.size() >= (8 << 20)) {
-                if (fwrite(ob.data(), 1, ob.size(), rf) != ob.size())
+                if (fwrite(ob.data(), 1, ob.size(), rf) != ob.size()) {
+                    fclose(rf);
                     return false;
+                }
                 ob.clear();
             }
         }
-        if (!ob.empty() &&
-            fwrite(ob.data(), 1, ob.size(), rf) != ob.size()) return false;
+        if ((!ob.empty() &&
+             fwrite(ob.data(), 1, ob.size(), rf) != ob.size()) ||
+            fflush(rf) != 0) {
+            fclose(rf);
+            return false;
+        }
         rewind(rf);
         runs.push_back(rf);
         keys.clear();

@@ -2,11 +2,13 @@
 twopass, combine + twopass + align --xa --rescue-kmer, simulate /
 benchmark / cluster / sort / convert plus a combined align on the projected
 step, and the multi-device layer (dist-align in both modes, merge-shards,
-benchmark --scaling, the entry points) leave both out of sys.modules, and
-no source file of the port (nor chip_smoke.py, nor the card tests, nor the
-measurement scripts tools/torch_*.py and tools/_torch_bench.py) imports
-either."""
+benchmark --scaling, the entry points), and the port's benchmark and its
+distributed and sharded-scale tools leave both out of sys.modules, and no
+source file of the port (nor chip_smoke.py, nor the card tests, nor
+bench_torch.py, nor the measurement scripts tools/torch_*.py and
+tools/_torch_bench.py) imports either."""
 
+import json
 import os
 import re
 import socket
@@ -236,6 +238,35 @@ def test_multi_device_layer_runs_without_jax(tmp_path, tiny_ref):
     assert "requested 2 devices, have 1" in p.stderr
 
 
+def test_bench_scripts_run_without_jax(tmp_path):
+    """bench_torch.py's main, tools/torch_bench_distributed.py's measurement
+    (one and two processes of the port's CLI) and
+    tools/torch_bench_shards_scale.py's, on the CPU at tiny sizes, in one
+    process: neither jax nor the JAX package comes in."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(REPO / 'tools')!r})\n"
+        "import bench_torch\n"
+        "import torch_bench_distributed as dist\n"
+        "import torch_bench_shards_scale as shards\n"
+        "assert bench_torch.main(['--device', 'cpu'], n_reads=512, "
+        "batch=256, ref_len=100_000, cpu_reads=256, cpu_batch=256, "
+        "device_rounds=1, e2e_rounds=1) == 0\n"
+        "assert dist.measure(1024, 'cpu', rounds=1)['same_output']\n"
+        "assert shards.measure('cpu', 1_000_000, 64)['dominance_ok']\n"
+        f"{ALONE}"
+        "print('no-jax-ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "1"
+    p = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=400)
+    assert p.returncode == 0, p.stderr[-2000:]
+    lines = p.stdout.strip().splitlines()
+    assert lines[-1] == "no-jax-ok"
+    assert json.loads(lines[0])["metric"] == "reads_per_second_per_chip"
+
+
 def test_no_source_file_imports_jax():
     """No `import` / `from` of jax or of parasuite_tpu (parasuite_tpu_torch
     is the port itself), anywhere in a line: a docstring recipe counts."""
@@ -244,7 +275,8 @@ def test_no_source_file_imports_jax():
     files = sorted((REPO / "parasuite_tpu_torch").rglob("*.py"))
     tools = sorted((REPO / "tools").glob("torch_*.py"))
     tools.append(REPO / "tools" / "_torch_bench.py")
-    assert len(tools) == 11
+    assert len(tools) == 13
+    tools.append(REPO / "bench_torch.py")
     files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
               REPO / "tests" / "_torch_helpers.py", *tools]
     assert len(files) > 40

@@ -62,6 +62,23 @@ def gpu_line(device="cuda") -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def environment(device="cuda") -> dict:
+    """What a measurement stands beside: gpu_line(device) and the torch,
+    CUDA and nvcc versions ("not found" where this machine has no nvcc)."""
+    import torch
+
+    from parasuite_tpu_torch.ops._build import nvcc_path
+
+    try:
+        nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True,
+                              text=True, timeout=60).stdout.strip()
+    except OSError:
+        nvcc = ""
+    return {"gpu": gpu_line(device), "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "nvcc": nvcc.splitlines()[-1] if nvcc else "not found"}
+
+
 def sync(device) -> None:
     """Wait for the device: what every timed region starts and ends with."""
     import torch

@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
-# Every measurement script of the port at full size on one GPU, one after
-# the other; each tool's JSON lines go to <out>/<name>.jsonl, its stderr to
+# Every measurement script of the port, and its benchmark bench_torch.py, at
+# full size on one GPU, one after the other; each tool's JSON lines go to <out>/<name>.jsonl, its stderr to
 # <out>/<name>.err, and seconds and exit codes to <out>/times.txt.
 #
 #     bash tools/torch_full_size.sh [out_dir] [scale_run_reads]
@@ -30,5 +30,8 @@ run combined python tools/torch_bench_combined.py
 run genome python tools/torch_bench_genome.py
 PARASUITE_GENOME_PART=b PARASUITE_GENOME_K=13 PARASUITE_GENOME_MAXOCC=64 \
     run genome_maxocc64 python tools/torch_bench_genome.py
+run bench_torch python bench_torch.py
+run bench_distributed python tools/torch_bench_distributed.py 131072 --rounds 3
+run bench_shards_scale python tools/torch_bench_shards_scale.py
 PARASUITE_SCALE_READS=$SCALE_READS run scale python tools/torch_scale_run.py
 cat "$O/times.txt"
