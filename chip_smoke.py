@@ -134,17 +134,34 @@ each prints one line, and any failure raises (exit code != 0):
      given four times on a one-card machine), 2,048 reads: the dominance
      counts and the sensitivity equal the JAX tool's record
      (torch_bench_shards_scale.PINNED).
+ 28. wire: the wire step (align_device_packed: 2-bit codes and N mask up,
+     PackedResult down, profile counts fused), which phases 5-27 stream
+     through, against the unpacked step (align_device): on every batch of
+     the bench world the unpacked PackedResult equals the AlignResult field
+     by field and the fused counts equal profile_counts_device; the same for
+     one batch of the rescue world through a rescue engine (to_host, and the
+     k = 11 step) and of the combined world (the projected step against
+     the unprojected one, to_host); bytes up and down a batch counted from
+     the tensors (at most 22 and 13 a read at L = 50); step + fetch ms of
+     both, alone and as a profile pass, 10 turns; the PyTorch operators,
+     wrapper launches and profiler CUDA events of each step; extend_impl /
+     select_impl "jnp" on the card (no launch) equal to "auto" on 4,096
+     reads; then `align` and `twopass --learned-gaps` through the CLI on
+     both steps in turns (wire, unpacked, unpacked, wire, twice): the same
+     output bytes, the align SAM and the pass-1 outputs the JAX package's
+     (AT_SCALE).
 Phase 4 also holds the select kernel's shared-memory path (rows of 2,048 and
 4,096 entries) to the plain version, as the select_wide line.
-Phases 7-9, 11, 13-22 and 24-27 run on the card and check the exact kernel
+Phases 7-9, 11, 13-22 and 24-28 run on the card and check the exact kernel
 launch counts of their runs; phases 10 and 12 launch none, and phase 23's
 launches happen in its own subprocesses and are not counted here (those of
 phase 26's processes are, from their JSON lines; the CPU leg of phase 25
 runs the plain versions). Every phase line carries elapsed_seconds, the
 time since the run started.
 
-Then one JSON line on the kernels (launches summed over phases 5-27, those
-of phases 15 and 26's processes included), a check that neither jax nor the JAX
+Then one JSON line on the kernels (launches summed over phases 5-28, those
+of phases 15 and 26's processes included, and of phase 28 its CLI runs on
+the wire step), a check that neither jax nor the JAX
 package was imported, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -1409,8 +1426,8 @@ class _NullWriter:
 def combined_host_split(gpu: str) -> None:
     """Host split of one 65,536-read batch of the combined world, 3 runs
     each: device step (align + synchronize), fetch + to_host, emit_sam into
-    a null writer; ms. Plain engine on the genome index, combined engine on
-    the projected and on the unprojected step."""
+    a null writer; ms. Plain engine on the genome index (the wire step),
+    combined engine on the projected and on the unprojected step."""
     import torch
 
     from parasuite_tpu_torch.config import AlignConfig
@@ -1438,8 +1455,10 @@ def combined_host_split(gpu: str) -> None:
     }
     split = {}
     for name, eng in engines.items():
-        step = (eng.align_device_packed if name == "combined"
-                else eng.align_device)
+        # each mode's streaming step: the wire (plain), the projected step
+        # (combined), or the unprojected one
+        step = (eng.align_device if name == "combined_unprojected"
+                else eng.align_device_packed)
         runs = {"device_step": [], "fetch_to_host": [], "emit": []}
         for _ in range(1 + 3):             # the first run warms up
             t0 = time.perf_counter()
@@ -2185,6 +2204,275 @@ def shards_scale_phase(gpu: str) -> dict:
     return launches
 
 
+HOST_FIELDS = ("mapped", "strand", "pos", "score", "mapq", "x0", "x1", "nm",
+               "ug_equal", "tc_count")
+
+
+def _host_equal(want, got, what: str) -> None:
+    """An AlignResult of numpy arrays, or a HostAlignments, equal to
+    another field by field, in value and dtype."""
+    for f in want._fields if hasattr(want, "_fields") else HOST_FIELDS:
+        w, g = getattr(want, f), getattr(got, f)
+        if w.dtype != g.dtype or not np.array_equal(w, g):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def _ops_of(fn) -> dict:
+    """What one call of fn (a step and its fetch) puts on the device: the
+    PyTorch operators it dispatches, the kernel launches of the two
+    wrappers, and the CUDA kernels and copies the profiler records (None
+    where it records none)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    torch.cuda.synchronize()
+    _reset_counters()
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    out = {"torch_ops": Count.n, **_counters()}
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+        out["cuda_events"] = n or None
+    except (RuntimeError, AssertionError):   # no CUDA activity to trace
+        out["cuda_events"] = None
+    return out
+
+
+def wire_phase(gpu: str) -> dict:
+    """The wire step (2-bit codes and N mask up, PackedResult down, the
+    profile counts fused) against the unpacked step: equal outputs on every
+    batch of the bench world, the rescue tier and the combined world;
+    bytes moved; step + fetch ms and what each step launches; "jnp" against
+    "auto" on the card; FASTQ -> SAM of `cli align` and `cli twopass` on
+    both steps, in turns. -> the kernel launches of the CLI runs on the
+    wire step (the main path; the comparisons' launches are not counted)."""
+    import torch
+
+    import parasuite_tpu_torch.cli as pcli
+    from parasuite_tpu_torch.config import AlignConfig
+    from parasuite_tpu_torch.index import KmerIndex, PackedReference
+    from parasuite_tpu_torch.io.fastq import read_fastq
+    from parasuite_tpu_torch.ops.aligner import (align_batch_packed,
+                                                 unpack_result_host)
+    from parasuite_tpu_torch.pipeline.align import AlignerEngine, fetch_host
+    from parasuite_tpu_torch.pipeline.combined import (CombinedEngine,
+                                                       CombinedReference)
+
+    t0 = time.perf_counter()
+    cfg = AlignConfig(max_read_len=READ_LEN, kmer_size=12, batch_size=BATCH,
+                      max_candidates=8, max_occ=16)
+    ref, index = PackedReference.load(WORK / "idx"), KmerIndex.load(
+        WORK / "idx")
+    engine = AlignerEngine(ref, index, cfg, device="cuda")
+    W = cfg.band_width
+    full = read_fastq(WORK / "all.fastq", READ_LEN)
+    chunks = [(full.codes[i:i + BATCH], full.lengths[i:i + BATCH])
+              for i in range(0, N_READS, BATCH)]
+
+    def packed_host(out):
+        return unpack_result_host(fetch_host(out)[0], W)
+
+    # (a) every batch: the wire step = the unpacked step; fused counts =
+    # profile_counts_device
+    for k, (codes, lens) in enumerate(chunks):
+        packed, counts = engine.align_device_packed(codes, lens,
+                                                    with_counts=True)
+        res = engine.align_device(codes, lens)
+        want_counts = engine.profile_counts_device(codes, lens, res)
+        _host_equal(fetch_host(res)[0], packed_host(packed),
+                    f"wire batch {k}")
+        if not torch.equal(counts, want_counts):
+            raise AssertionError(f"wire batch {k}: fused counts differ")
+    # (c) bytes a batch, counted from the tensors each step moves
+    moved = {}
+    upload = engine._upload
+    for name, step in (("wire", engine.align_device_packed),
+                       ("unpacked", engine.align_device)):
+        up = []
+        engine._upload = lambda *a: up.append(upload(*a)) or up[-1]
+        out = step(*chunks[0])
+        engine._upload = upload
+        moved[name] = {
+            "up": sum(x.numel() * x.element_size() for x in up[0]),
+            "down": sum(x.numel() * x.element_size() for x in out)}
+    if moved["wire"]["down"] > 13 * BATCH + 64 or \
+            moved["wire"]["up"] > 22 * BATCH:
+        raise AssertionError(f"wire: bytes a batch {moved['wire']}")
+    # (d) step + fetch, ms, in turns; and as a profile pass (+ counts)
+    codes, lens = chunks[0]
+    steps = {
+        "wire": lambda: fetch_host(engine.align_device_packed(codes,
+                                                              lens)),
+        "unpacked": lambda: fetch_host(engine.align_device(codes, lens)),
+        "wire_counts": lambda: [
+            x.cpu() if isinstance(x, torch.Tensor) else fetch_host(x)
+            for x in engine.align_device_packed(codes, lens,
+                                                with_counts=True)],
+        "unpacked_counts": lambda: (
+            lambda r: (engine.profile_counts_device(codes, lens, r).cpu(),
+                       fetch_host(r)))(engine.align_device(codes, lens)),
+    }
+    ms = {name: [] for name in steps}
+    for turn in range(10):
+        order = list(steps) if turn % 2 == 0 else list(steps)[::-1]
+        for name in order:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            steps[name]()
+            torch.cuda.synchronize()
+            ms[name].append(1e3 * (time.perf_counter() - t1))
+    packed_fetched = fetch_host(engine.align_device_packed(codes, lens))[0]
+    t1 = time.perf_counter()
+    unpack_result_host(packed_fetched, W)
+    unpack_ms = 1e3 * (time.perf_counter() - t1)
+    # (e) what a step (and its fetch) puts on the device
+    launches = {name: _ops_of(steps[name]) for name in steps}
+    for name, want in (("wire", 1), ("unpacked", 1)):
+        if (launches[name]["select_candidates"],
+                launches[name]["extend_candidates"]) != (want, want):
+            raise AssertionError(f"wire: {name} launches {launches[name]}")
+    # (f) "jnp" on the card = "auto", field by field, on 4,096 reads
+    small = [x[:4096] for x in chunks[0]]
+    outs = {}
+    for impl in ("auto", "jnp"):
+        c = cfg.replace(extend_impl=impl, select_impl=impl)
+        _reset_counters()
+        outs[impl] = packed_host(align_batch_packed(
+            engine.didx, engine.sprof, *engine._upload_wire(*small),
+            engine._ms_table, c))
+        n_launch = _counters()
+        if any(v != (1 if impl == "auto" else 0) for v in n_launch.values()):
+            raise AssertionError(f"wire: {impl} launched {n_launch}")
+    _host_equal(outs["auto"], outs["jnp"], "wire: jnp vs auto on the card")
+    del engine
+    torch.cuda.empty_cache()
+
+    # (b) the rescue tier on the rescue world, the combined step on the
+    # combined world: to_host of the wire step = of the unpacked one
+    rcfg = AlignConfig(max_read_len=RESCUE_LEN, kmer_size=12,
+                       batch_size=RESCUE_BATCH, max_candidates=8, max_occ=16,
+                       rescue_kmer=11)
+    reng = AlignerEngine(ref, index, rcfg, device="cuda")
+    rb = read_fastq(WORK / "rescue.fastq", RESCUE_LEN)
+    rbatch = type(rb)(codes=rb.codes[:RESCUE_BATCH],
+                      lengths=rb.lengths[:RESCUE_BATCH],
+                      names=rb.names[:RESCUE_BATCH],
+                      quals=rb.quals[:RESCUE_BATCH])
+    hosts, rescued = [], []
+    for packed in (True, False):
+        reng.supports_packed = packed
+        step = reng.align_device_packed if packed else reng.align_device
+        reng.rescue_mapped = reng.rescue_overflow = 0
+        hosts.append(reng.to_host(rbatch, step(rbatch.codes,
+                                               rbatch.lengths)))
+        rescued.append((reng.rescue_mapped, reng.rescue_overflow))
+    _host_equal(hosts[1], hosts[0], "wire: rescue tier")
+    if rescued[0] != rescued[1] or rescued[0][0] <= 0:
+        raise AssertionError(f"wire: rescue counters {rescued}")
+    cfg2, didx2, cap = reng._rescue
+    r2 = [reng._step_packed(didx2, cfg2, rbatch.codes[:cap],
+                            rbatch.lengths[:cap]),
+          reng._step(didx2, cfg2, rbatch.codes[:cap], rbatch.lengths[:cap])]
+    _host_equal(fetch_host(r2[1])[0], packed_host(r2[0]),
+                "wire: rescue step")
+    del reng, r2
+    comb = WORK / "comb"
+    ceng = CombinedEngine(CombinedReference.load(comb / "cidx"),
+                          KmerIndex.load(comb / "cidx"), cfg, device="cuda")
+    cb = read_fastq(comb / "all.fastq", READ_LEN)
+    cbatch = type(cb)(codes=cb.codes[:BATCH], lengths=cb.lengths[:BATCH],
+                      names=cb.names[:BATCH], quals=cb.quals[:BATCH])
+    cout = ceng.align_device_packed(cbatch.codes, cbatch.lengths)
+    moved["combined_wire_down"] = sum(x.numel() * x.element_size()
+                                      for p in cout for x in p)
+    hc = [ceng.to_host(cbatch, cout),
+          ceng.to_host(cbatch, ceng.align_device(cbatch.codes,
+                                                 cbatch.lengths))]
+    _host_equal(hc[1], hc[0], "wire: combined step")
+    if any(hc[0].cigars[i] != hc[1].cigars[i] for i in range(BATCH)):
+        raise AssertionError("wire: combined step CIGARs differ")
+    if ceng.packed_batches != 1 or ceng.packed_overflow:
+        raise AssertionError(f"wire: combined step {ceng.packed_batches}, "
+                             f"overflow {ceng.packed_overflow}")
+    del ceng
+    torch.cuda.empty_cache()
+
+    # FASTQ -> SAM through the CLI on both steps, in turns: the unpacked
+    # runs take the CLI's engines with supports_packed turned off
+    load = pcli._load_engine
+
+    def unpacked_load(*a, **kw):
+        e = load(*a, **kw)
+        e.supports_packed = False
+        return e
+
+    e2e = {"align": {"wire": [], "unpacked": []},
+           "twopass": {"wire": [], "unpacked": []}}
+    digests = {}
+    wire_launches = []
+    for cmd in ("align", "twopass"):
+        for mode in ("wire", "unpacked", "unpacked", "wire") * 2:
+            out = WORK / f"wire_{cmd}_{mode}.sam"
+            extra = ["--learned-gaps"] if cmd == "twopass" else []
+            pcli._load_engine = unpacked_load if mode == "unpacked" else load
+            _reset_counters()
+            t1 = time.perf_counter()
+            try:
+                res = _cli_json([cmd, str(WORK / "idx"),
+                                 str(WORK / "all.fastq"), str(out), *extra,
+                                 "--pg-cl", "smoke", "--batch-size",
+                                 str(BATCH), *FLAGS, "--device", "cuda"])
+            finally:
+                pcli._load_engine = load
+            dt = time.perf_counter() - t1
+            want = (1 if cmd == "align" else 2) * _n_batches(N_READS, BATCH)
+            _expect_launches(_counters(), want, f"wire {cmd} {mode}")
+            if mode == "wire":
+                wire_launches.append(_counters())
+            e2e[cmd][mode].append({
+                "seconds_in_cli": res.get("seconds"),
+                "reads_per_s_in_cli": res.get("reads_per_second"),
+                "call_seconds": round(dt, 3),
+                "reads_per_s_call": round(res["reads"] / dt, 1)})
+            names = [out.name] + ([f"{out.name}.pass1.sam",
+                                   f"{out.name}.errorprofile"]
+                                  if cmd == "twopass" else [])
+            digests.setdefault(cmd, {})[mode] = {
+                n: sha256(WORK / n) for n in names}
+    if digests["align"]["wire"]["wire_align_wire.sam"] != AT_SCALE["all.sam"]:
+        raise AssertionError("wire: align SAM differs from the JAX "
+                             "package's")
+    for cmd, d in digests.items():
+        if list(d["wire"].values()) != list(d["unpacked"].values()):
+            raise AssertionError(f"wire: {cmd} outputs differ by step")
+    tp = list(digests["twopass"]["wire"].values())
+    if tp[1:] != [AT_SCALE["all.bam.pass1.sam"],
+                  AT_SCALE["all.bam.errorprofile"]]:
+        raise AssertionError("wire: twopass pass 1 differs from the JAX "
+                             "package's")
+    phase("wire", batch=BATCH, bytes_per_batch=moved,
+          step_fetch_ms={k: {"median": float(np.median(v)), "runs": v}
+                         for k, v in ms.items()},
+          unpack_result_host_ms=unpack_ms, per_step=launches,
+          fastq_to_sam_in_turns=e2e,
+          rescue_counters=rescued[0],
+          seconds=round(time.perf_counter() - t0, 3), gpu=gpu)
+    return _add(*wire_launches)
+
+
 def main() -> int:
     gpu = environment()
     build()
@@ -2227,6 +2515,8 @@ def main() -> int:
     # tools drive the JAX package
     runs += [bench_leg_phase(gpu), dist_bench_phase(gpu),
              shards_scale_phase(gpu)]
+    # the wire step against the unpacked one, on the worlds above
+    runs.append(wire_phase(gpu))
     for k in kernels:
         k["launches"] = sum(r[k["name"]] for r in runs)
     foreign = sorted(m for m in sys.modules

@@ -151,7 +151,9 @@ def _engine_counters(engines) -> dict:
         keys.append("xa_dropped")
     if engines[0].cfg.rescue_kmer:
         keys += ["rescue_mapped", "rescue_overflow"]
-    if engines[0].supports_packed:
+    # the projected step's counters: the combined engine's alone (the
+    # plain engine takes the wire step too, and has none)
+    if engines[0].supports_packed and hasattr(engines[0], "packed_batches"):
         keys += ["packed_batches", "packed_entries", "packed_junctions",
                  "packed_overflow"]
     return {k: sum(getattr(e, k) for e in engines) for k in keys}

@@ -125,9 +125,15 @@ class AlignConfig:
     chrom_spacer: int = 256          # N bases packed between chroms (> L + 2W,
                                      # so no alignment window straddles chroms)
     seed: int = 0                    # PRNG seed for simulation
-    extend_impl: str = "auto"        # read by the JAX package only; the port
-    select_impl: str = "auto"        # ignores both and keeps them so the
-                                     # config JSON and cfg_hash stay equal
+    extend_impl: str = "auto"        # extension / candidate-select stage
+    select_impl: str = "auto"        # (ops/aligner.resolve_*_fn): "auto" the
+                                     # Hopper kernel on CUDA tensors and the
+                                     # plain version on CPU tensors;
+                                     # "pallas" the kernel, and CPU tensors
+                                     # raise; "jnp" the plain version on
+                                     # every device (the JAX package's names
+                                     # and values, so the config JSON and
+                                     # cfg_hash stay equal)
 
     def __post_init__(self) -> None:
         if self.chrom_spacer < self.max_read_len + 2 * self.band_width:

@@ -3,33 +3,48 @@
 Counterpart of parasuite_tpu/ops/aligner.py (align_batch and its stages),
 bit-equal to it on the same inputs: integer-only scoring, identical clips and
 tie-breaks. The TPU-specific formulations of the reference (3-bit funnel
-shift for the reverse complement, 16-wide row gathers for seed positions,
-3-bit packed reference words for the NM window) are plain gathers here; they
-give the same values.
+shift for the reverse complement, 16-wide row gathers for seed positions)
+are plain gathers here; they give the same values.
 
 align_batch_with_candidates (XA tags, combined mode) adds the per-candidate
 table of parasuite_tpu/ops/aligner.py::candidate_table to the same step.
-align_batch_combined_packed is combined mode's projected step
-(parasuite_tpu/ops/aligner.py:604-812, with finalize_core's src, nm_pos and
-nm_strand at :368-488): the genome projection and re-finalization in plain
-torch ops around the same two kernels, without the reference's wire
-bit-packing (:491-573).
 
-Candidate selection and extension go through the wrappers in cuda_seed.py
-and cuda_extend.py: the Hopper kernels for CUDA tensors, the plain PyTorch
-versions for CPU tensors. Nothing here synchronises with the device, so a
-caller can keep several batches in flight.
+The wire step is ported as the reference has it (:491-601): 2-bit codes, an
+N bitmask and uint16 lengths go up (pack_codes_host), align_batch_packed
+unpacks them on the device, aligns, and packs the AlignResult into a
+13 B/read PackedResult (pack_result; unpack_result_host restores it on the
+host), with the profile counts fused into the same step on request.
+align_batch_combined_packed is combined mode's projected step on the same
+wire (:604-812, with finalize_core's src, nm_pos and nm_strand at :368-488).
+Pack and unpack are plain torch ops inside the step, as the reference
+computes them in XLA outside its Pallas kernels.
+
+parasuite_tpu/ops/packed_ref.py is not ported: the reference recomputes its
+3-bit reference words inside every step only to fetch the ungapped NM window
+(finalize_core) and the extension windows (pallas_extend.py). Here the NM
+window is one byte gather of ref_seq and the extension kernel copies its
+windows raw, so the words would be used by nothing.
+
+Candidate selection and extension go through resolve_select_fn and
+resolve_extend_fn (cfg.select_impl / cfg.extend_impl): by default the
+wrappers in cuda_seed.py and cuda_extend.py, which launch the Hopper kernels
+for CUDA tensors and take the plain PyTorch versions for CPU tensors.
+Nothing here synchronises with the device, so a caller can keep several
+batches in flight.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from parasuite_tpu_torch.config import AlignConfig
-from parasuite_tpu_torch.ops.cuda_extend import NEG, extend_candidates
-from parasuite_tpu_torch.ops.cuda_seed import I32MAX, select_candidates
+from parasuite_tpu_torch.ops.cuda_extend import (NEG, extend_candidates,
+                                                 extend_candidates_plain)
+from parasuite_tpu_torch.ops.cuda_seed import (I32MAX, select_candidates,
+                                               select_candidates_plain)
 from parasuite_tpu_torch.ops.device_index import DeviceIndex, ScoreParams
 
 _COMP = (3, 2, 1, 0, 4)
@@ -341,6 +356,45 @@ def candidate_table(oriented, lengths, min_scores, cand_diag, cand_valid,
 # full pipeline
 # ---------------------------------------------------------------------------
 
+def _kernel_only(fn, field: str):
+    """fn for a config that names the kernel ("pallas"): inputs off the
+    card raise, as the reference's pallas_call does off the TPU, instead of
+    taking the plain version."""
+
+    def kernel(x: torch.Tensor, *args, **kwargs):
+        if x.device.type != "cuda":
+            raise ValueError(f"{field}='pallas' needs the CUDA kernel on an "
+                             f"NVIDIA GPU, and the inputs are on {x.device} "
+                             f"(use 'auto' or 'jnp' there)")
+        return fn(x, *args, **kwargs)
+
+    return kernel
+
+
+def _resolve(impl: str, field: str, wrapper, plain):
+    """The reference's mapping (parasuite_tpu/ops/aligner.py:858-879) with
+    the card in the TPU's place: "auto" the wrapper (the kernel on CUDA
+    tensors, the plain version on CPU tensors), "pallas" the kernel alone,
+    anything else the plain version on every device."""
+    if impl == "auto":
+        return wrapper
+    if impl == "pallas":
+        return _kernel_only(wrapper, field)
+    return plain
+
+
+def resolve_extend_fn(cfg: AlignConfig):
+    """cfg.extend_impl -> the extension stage (see _resolve)."""
+    return _resolve(cfg.extend_impl, "extend_impl", extend_candidates,
+                    extend_candidates_plain)
+
+
+def resolve_select_fn(cfg: AlignConfig):
+    """cfg.select_impl -> the candidate-select stage (see _resolve)."""
+    return _resolve(cfg.select_impl, "select_impl", select_candidates,
+                    select_candidates_plain)
+
+
 def _extend_stages(didx: DeviceIndex, sprof: ScoreParams,
                    codes: torch.Tensor, lengths: torch.Tensor,
                    cfg: AlignConfig):
@@ -348,8 +402,9 @@ def _extend_stages(didx: DeviceIndex, sprof: ScoreParams,
     (oriented, cand_diag, cand_valid, (dp_score, dp_j, ug_score, ug_j))."""
     oriented = orient_reads(codes, lengths)
     diags = seed_diagonals(oriented, lengths, didx, cfg)
-    cand_diag, cand_valid = select_candidates(diags, cfg)
-    ext = extend_candidates(oriented, lengths, cand_diag, didx, sprof, cfg)
+    cand_diag, cand_valid = resolve_select_fn(cfg)(diags, cfg)
+    ext = resolve_extend_fn(cfg)(oriented, lengths, cand_diag, didx, sprof,
+                                 cfg)
     return oriented, cand_diag, cand_valid, ext
 
 
@@ -375,6 +430,123 @@ def align_batch_with_candidates(didx: DeviceIndex, sprof: ScoreParams,
     table = candidate_table(oriented, lengths, min_scores, cand_diag,
                             cand_valid, *ext, cfg, didx.ref_seq.shape[0])
     return res, table
+
+
+# ---------------------------------------------------------------------------
+# the wire: packed codes up, PackedResult down
+# ---------------------------------------------------------------------------
+
+class PackedResult(NamedTuple):
+    """AlignResult packed for the wire, layout v2 of the reference
+    (parasuite_tpu/ops/aligner.py:491-515), 13 B/read against the 42 of
+    the AlignResult's own fields:
+
+      u8  [B, 7]  col0 = mapped | strand<<1 | ug_equal<<2 | (diag-pos+W)<<3
+                  cols 1..6 = mapq, nm, x0, x1, n_candidates, tc_count
+      i16 [B, 1]  score (|score| <= 127/base * 255 bases = 32385 < 2^15;
+                  unmapped rows store 0 and unpack to NEG via the flag)
+      i32 [B, 1]  pos
+
+    diag rides as its band offset: pos = diag - W + j with j in [0, 2W],
+    so diag - pos + W fits 5 bits for W <= 15. unpack_result_host restores
+    the AlignResult bit for bit within the bounds AlignerEngine's
+    supports_packed checks (L <= 255, 2 * max_candidates <= 255,
+    band_width <= 15)."""
+
+    u8: torch.Tensor    # uint8 [B, 7]
+    i16: torch.Tensor   # int16 [B, 1] score
+    i32: torch.Tensor   # int32 [B, 1] pos
+
+
+def pack_codes_host(codes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """[B, L] int8 codes (0..4) -> (two-bit [B, ceil(L/4)] uint8, N mask
+    [B, ceil(L/8)] uint8, little bit order): 20 B/read at L = 50."""
+    B, L = codes.shape
+    u = codes.astype(np.uint8)
+    isn = u >= 4
+    v = np.where(isn, 0, u)
+    pad = (-L) % 4
+    if pad:
+        v = np.concatenate([v, np.zeros((B, pad), np.uint8)], axis=1)
+    two = (v[:, 0::4] | (v[:, 1::4] << 2) | (v[:, 2::4] << 4)
+           | (v[:, 3::4] << 6))
+    nmask = np.packbits(isn, axis=1, bitorder="little")
+    return two, nmask
+
+
+def unpack_codes(two: torch.Tensor, nmask: torch.Tensor,
+                 L: int) -> torch.Tensor:
+    """The inverse of pack_codes_host, on the tensors' device: int8
+    [B, L]."""
+    B = two.shape[0]
+    sh2 = torch.arange(0, 8, 2, dtype=torch.uint8, device=two.device)
+    bases = ((two[:, :, None] >> sh2) & 3).reshape(B, -1)[:, :L]
+    sh1 = torch.arange(8, dtype=torch.uint8, device=two.device)
+    bits = ((nmask[:, :, None] >> sh1) & 1).reshape(B, -1)[:, :L]
+    return torch.where(bits == 1, 4, bases).to(torch.int8)
+
+
+def pack_result(res: AlignResult, band_width: int) -> PackedResult:
+    """AlignResult -> PackedResult, on the device. Every narrowing keeps the
+    low bits, as the reference's astype does."""
+    u8 = torch.uint8
+    dposw = torch.where(res.mapped, res.diag - res.pos + band_width, 0)
+    flags = (res.mapped.to(u8) | (res.strand << 1).to(u8)
+             | (res.ug_equal.to(u8) << 2) | (dposw << 3).to(u8))
+    cols = torch.stack([flags, *(x.to(u8) for x in (
+        res.mapq, res.nm, res.x0, res.x1, res.n_candidates,
+        res.tc_count))], dim=1)
+    i16 = torch.where(res.mapped, res.score, 0).to(torch.int16)[:, None]
+    return PackedResult(u8=cols, i16=i16, i32=res.pos[:, None])
+
+
+def unpack_result_host(packed: PackedResult,
+                       band_width: int) -> AlignResult:
+    """PackedResult of numpy arrays -> AlignResult of numpy arrays, with the
+    dtypes fetch_host gives an AlignResult (bool mapped and ug_equal, int32
+    elsewhere)."""
+    i = np.asarray(packed.u8).astype(np.int32)
+    flags = i[:, 0]
+    mapped = (flags & 1).astype(bool)
+    pos = np.asarray(packed.i32)[:, 0]
+    score = np.where(mapped, np.asarray(packed.i16)[:, 0].astype(np.int32),
+                     np.int32(NEG))
+    diag = np.where(mapped, pos + (flags >> 3) - band_width, np.int32(0))
+    return AlignResult(
+        mapped=mapped, strand=(flags >> 1) & 1, pos=pos, score=score,
+        mapq=i[:, 1], x0=i[:, 3], x1=i[:, 4],
+        ug_equal=((flags >> 2) & 1).astype(bool), nm=i[:, 2], diag=diag,
+        n_candidates=i[:, 5], tc_count=i[:, 6])
+
+
+def _unpack_wire(two, nmask, lengths_u16, ms_table, cfg: AlignConfig):
+    """The step's inputs from the wire -> (codes int8 [B, L], lengths int32,
+    min_scores int32). The lengths are read through int16 (PyTorch has few
+    CUDA kernels for uint16); they are below 2^15 (L <= 255)."""
+    codes = unpack_codes(two, nmask, cfg.max_read_len)
+    lengths = lengths_u16.view(torch.int16).to(torch.int32) & 0xFFFF
+    min_scores = ms_table[torch.clamp(lengths, 0,
+                                      ms_table.shape[0] - 1).long()]
+    return codes, lengths, min_scores
+
+
+def align_batch_packed(didx: DeviceIndex, sprof: ScoreParams,
+                       packed_codes: torch.Tensor, nmask: torch.Tensor,
+                       lengths_u16: torch.Tensor, ms_table: torch.Tensor,
+                       cfg: AlignConfig, with_counts: bool = False):
+    """Wire step: 2-bit codes + N mask + uint16 lengths in, PackedResult
+    out -- and with with_counts the [L, 4, 4] profile count matrix from the
+    codes already on the device, so a profile pass uploads once."""
+    from parasuite_tpu_torch.ops.profile_update import profile_counts_batch
+
+    codes, lengths, min_scores = _unpack_wire(packed_codes, nmask,
+                                              lengths_u16, ms_table, cfg)
+    res = align_batch(didx, sprof, codes, lengths, min_scores, cfg)
+    out = pack_result(res, cfg.band_width)
+    if not with_counts:
+        return out
+    return out, profile_counts_batch(didx, codes, lengths, res.mapped,
+                                     res.strand, res.pos, res.ug_equal, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -408,25 +580,30 @@ class TxDeviceTables(NamedTuple):
 
 
 class PackedCandidates(NamedTuple):
-    """The valid candidate entries of the rows that need the host (name of
-    the reference's wire record, parasuite_tpu/ops/aligner.py:616).
+    """The valid candidate entries of the rows that need the host, in the
+    reference's wire layout (parasuite_tpu/ops/aligner.py:616-646).
 
     The rows with a junction-spanning, gapped or out-of-bounds candidate
     ship their valid entries, compacted front-first in flat (row,
     candidate) order — the order the host slow path dedupes and ranks in —
-    into a buffer of K = round(combined_wire_cap * B) entries. In the port
-    the fields ride unpacked (the reference bit-packs strand, ug_equal and
-    diag into a flags byte for the remote-TPU tunnel). n_sel is the true
-    count; past K the host re-runs the batch through the unprojected step.
+    into a buffer of K = round(combined_wire_cap * B) entries, 11 B each:
+
+      row    i32 [K]  batch row of the entry
+      pos    i32 [K]  ungapped-key packed position
+      score  i16 [K]  DP score (a valid entry passed min_score >= 0, and
+                       max <= 127 * 255 < 2^15, PackedResult's bound)
+      flags  u8  [K]  bit0 = 1 (valid), bit1 strand, bit2 ug_equal,
+                       bits 3..7 diag - pos + band_width (in [0, 2W])
+      n_sel  i32 []   the true count; past K the host re-runs the batch
+                       through the unprojected step
+
     Slots past n_sel hold entry 0, as in the reference."""
 
     n_sel: torch.Tensor      # int32 []
-    row: torch.Tensor        # int32 [K] batch row of the entry
-    pos: torch.Tensor        # int32 [K] ungapped-key packed position
-    score: torch.Tensor      # int32 [K] DP score
-    strand: torch.Tensor     # int32 [K]
-    ug_equal: torch.Tensor   # bool  [K]
-    diag: torch.Tensor       # int32 [K]
+    row: torch.Tensor        # int32 [K]
+    pos: torch.Tensor        # int32 [K]
+    score: torch.Tensor      # int16 [K]
+    flags: torch.Tensor      # uint8 [K]
 
 
 class PackedJunctions(NamedTuple):
@@ -497,14 +674,16 @@ def _compact(mask: torch.Tensor, cap: int) -> tuple[torch.Tensor,
 
 
 def align_batch_combined_packed(didx: DeviceIndex, sprof: ScoreParams,
-                                txt: TxDeviceTables, codes: torch.Tensor,
-                                lengths: torch.Tensor,
-                                min_scores: torch.Tensor, cfg: AlignConfig,
+                                txt: TxDeviceTables,
+                                packed_codes: torch.Tensor,
+                                nmask: torch.Tensor,
+                                lengths_u16: torch.Tensor,
+                                ms_table: torch.Tensor, cfg: AlignConfig,
                                 n_genome: int, tx_boundary: int,
                                 cap_entries: int, cap_junctions: int):
-    """Combined-mode align step with the genome projection on the device
-    (the reference's align_batch_combined_packed, without its wire
-    bit-packing: codes go up as int8, the AlignResult comes back as is).
+    """Combined-mode wire step with the genome projection on the device
+    (the reference's align_batch_combined_packed): the wire of
+    align_batch_packed in, a PackedResult out.
 
     Every single-exon or junction-spanning ungapped transcript candidate is
     projected to genome coordinates and the finalize selection re-runs on
@@ -513,8 +692,10 @@ def align_batch_combined_packed(didx: DeviceIndex, sprof: ScoreParams,
     exactly as the host slow path would. Only rows with a gapped or
     out-of-bounds candidate ship their entries (PackedCandidates); junction
     winners of the other rows ship (row, q0) (PackedJunctions).
-    -> (AlignResult, PackedCandidates, PackedJunctions), on the device;
+    -> (PackedResult, PackedCandidates, PackedJunctions), on the device;
     nothing here waits for it."""
+    codes, lengths, min_scores = _unpack_wire(packed_codes, nmask,
+                                              lengths_u16, ms_table, cfg)
     oriented, cand_diag, cand_valid, ext = _extend_stages(
         didx, sprof, codes, lengths, cfg)
     table = candidate_table(oriented, lengths, min_scores, cand_diag,
@@ -541,14 +722,18 @@ def align_batch_combined_packed(didx: DeviceIndex, sprof: ScoreParams,
     def entries(x):
         return x.reshape(-1)[sel]
 
+    e_pos = entries(table.pos)
+    dposw = entries(table.diag) - e_pos + cfg.band_width
+    flags = (1 | (entries(table.strand) << 1)
+             | (entries(table.ug_equal).to(torch.int32) << 2)
+             | (dposw << 3)).to(torch.uint8)
     pc = PackedCandidates(
-        n_sel=n_sel, row=(sel // n).to(torch.int32), pos=entries(table.pos),
-        score=entries(table.score), strand=entries(table.strand),
-        ug_equal=entries(table.ug_equal), diag=entries(table.diag))
+        n_sel=n_sel, row=(sel // n).to(torch.int32), pos=e_pos,
+        score=entries(table.score).to(torch.int16), flags=flags)
 
     bi = best_idx[:, None].long()
     win_nc = noncontig.gather(1, bi)[:, 0] & res.mapped & ~needs_host
     n_jun, jsel = _compact(win_nc, cap_junctions)
     pj = PackedJunctions(n_jun=n_jun, row=jsel.to(torch.int32),
                          q0=q0.gather(1, bi)[:, 0][jsel])
-    return res, pc, pj
+    return pack_result(res, cfg.band_width), pc, pj

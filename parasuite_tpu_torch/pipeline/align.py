@@ -3,9 +3,12 @@ records out.
 
 Counterpart of parasuite_tpu/pipeline/align.py. The device step is
 ops/aligner.py::align_batch (align_batch_with_candidates with XA tags) on the
-engine's device; the two-tier rescue pass (config.rescue_kmer) is a second
-align_batch at the smaller k. Host tracebacks for the rare gapped winners,
-XA strings and SAM/BAM emission are numpy and C++ (native/).
+engine's device, and the streaming step is its wire form align_batch_packed
+(2-bit codes and N mask up, PackedResult down, the profile counts of a
+profile pass fused in) wherever the reference's engine takes it
+(supports_packed); the two-tier rescue pass (config.rescue_kmer) is a second
+step of the same form at the smaller k. Host tracebacks for the rare gapped
+winners, XA strings and SAM/BAM emission are numpy and C++ (native/).
 host_traceback, host_tracebacks_batch, LazyCigars, HostAlignments, the XA,
 rescue and emit paths are copies of the reference's (its pipeline package
 imports jax when it is imported), pinned to it by tests/test_torch_*.py.
@@ -29,8 +32,11 @@ from parasuite_tpu_torch.oracle.align import (_ref_window, _score_rows,
                                               banded_dp, traceback_alignment)
 from parasuite_tpu_torch.utils.dna import N, revcomp_codes
 from parasuite_tpu_torch.ops.aligner import (AlignResult, CandidateTable,
-                                             align_batch,
-                                             align_batch_with_candidates)
+                                             PackedResult, align_batch,
+                                             align_batch_packed,
+                                             align_batch_with_candidates,
+                                             pack_codes_host,
+                                             unpack_result_host)
 from parasuite_tpu_torch.ops.cuda_seed import check_row_width
 from parasuite_tpu_torch.ops.device_index import (DeviceIndex, ScoreParams,
                                                   min_score_table)
@@ -236,27 +242,40 @@ class HostAlignments:
     xa: list = None          # per-read XA:Z alternative-hit strings (or None)
 
 
+def _widest_first(itemsizes) -> list[int]:
+    """The order of the parts of one byte buffer: widest elements first, so
+    each part starts at a multiple of its own element size (sizes are
+    powers of two, and every part holds whole elements)."""
+    return sorted(range(len(itemsizes)), key=lambda i: -itemsizes[i])
+
+
 def fetch_host(*parts):
-    """Device namedtuples of tensors (AlignResult, CandidateTable, the
-    combined step's PackedCandidates / PackedJunctions) -> the same
-    namedtuples of numpy arrays in ONE device->host transfer: every field
-    is flattened into one int32 buffer, so a batch synchronises once, not
-    once per field. Shapes come back as they were, bool fields bool; a
-    None part comes back None."""
+    """Device namedtuples of tensors (AlignResult, PackedResult,
+    CandidateTable, the combined step's PackedCandidates / PackedJunctions)
+    -> the same namedtuples of numpy arrays in ONE device->host transfer:
+    the bytes of every field go into one uint8 buffer, so a batch
+    synchronises once, not once per field, and moves the bytes its fields
+    hold (13 a read for a PackedResult, not 4 a field). Shapes and dtypes
+    come back as they were; a None part comes back None."""
     tensors = [x for p in parts if p is not None for x in p]
-    flat = torch.cat([x.reshape(-1).to(torch.int32) for x in tensors]
-                     ).cpu().numpy() if tensors else None
-    out, off = [], 0
+    order = _widest_first([x.element_size() for x in tensors])
+    flat = torch.cat([tensors[i].reshape(-1).view(torch.uint8)
+                      for i in order]).cpu().numpy() if tensors else None
+    arrays, off = [None] * len(tensors), 0
+    for i in order:
+        x = tensors[i]
+        nbytes = x.numel() * x.element_size()
+        dtype = torch.empty((), dtype=x.dtype).numpy().dtype
+        arrays[i] = flat[off:off + nbytes].view(dtype).reshape(
+            tuple(x.shape))
+        off += nbytes
+    out, k = [], 0
     for p in parts:
         if p is None:
             out.append(None)
             continue
-        fields = []
-        for x in p:
-            v = flat[off:off + x.numel()].reshape(tuple(x.shape))
-            off += x.numel()
-            fields.append(v.astype(bool) if x.dtype == torch.bool else v)
-        out.append(type(p)(*fields))
+        out.append(type(p)(*arrays[k:k + len(p)]))
+        k += len(p)
     return tuple(out)
 
 
@@ -287,10 +306,8 @@ class AlignerEngine:
     """Holds device state and the align step for one reference+profile.
 
     Duck-typed for streaming_align: cfg, sam_ref, supports_packed,
-    align_device, profile_counts_device, to_host, emit_sam, emit_bam."""
-
-    # only the combined engine has a projected step (align_device_packed)
-    supports_packed = False
+    align_device, align_device_packed, profile_counts_device, to_host,
+    emit_sam, emit_bam."""
 
     def __init__(self, ref: PackedReference, index: KmerIndex,
                  cfg: AlignConfig, s_tensor: np.ndarray | None = None,
@@ -308,6 +325,12 @@ class AlignerEngine:
         self.didx = DeviceIndex.from_host(ref, index, self.device)
         self._ms_table = torch.from_numpy(min_score_table(cfg)).to(
             self.device)
+        # the wire step (ops/aligner.PackedResult) where the reference's
+        # engine takes it: its uint8 fields hold only under these bounds
+        # (band_width <= 15: the diag band offset rides in 5 bits)
+        self.supports_packed = (not xa_tags and cfg.max_read_len <= 255
+                                and 2 * cfg.max_candidates <= 255
+                                and cfg.band_width <= 15)
         self.set_profile(s_tensor if s_tensor is not None
                          else flat_score_tensor(cfg, cfg.max_read_len))
         # two-tier seeding rescue (config.rescue_kmer): a second k-mer index
@@ -334,17 +357,47 @@ class AlignerEngine:
         self.sprof = ScoreParams.from_tensor(s_tensor, self.cfg, self.device)
 
     # --- device steps ---
-    def _upload(self, codes: np.ndarray, lengths: np.ndarray):
-        c = torch.from_numpy(np.ascontiguousarray(codes)).to(self.device)
-        ln = torch.from_numpy(np.ascontiguousarray(lengths, dtype=np.int32))
-        return c, ln.to(self.device)
+    def _upload(self, *arrays: np.ndarray) -> tuple[torch.Tensor, ...]:
+        """Host arrays -> tensors of the same dtypes and shapes on the
+        engine's device, in ONE host->device copy (their bytes in one
+        buffer, widest elements first, as fetch_host)."""
+        arrays = [np.ascontiguousarray(a) for a in arrays]
+        order = _widest_first([a.itemsize for a in arrays])
+        buf = torch.from_numpy(np.concatenate(
+            [arrays[i].reshape(-1).view(np.uint8) for i in order]
+        )).to(self.device)
+        out, off = [None] * len(arrays), 0
+        for i in order:
+            a = arrays[i]
+            dtype = torch.from_numpy(a[:0].reshape(-1)).dtype
+            out[i] = buf[off:off + a.nbytes].view(dtype).reshape(a.shape)
+            off += a.nbytes
+        return tuple(out)
+
+    def _upload_reads(self, codes: np.ndarray, lengths: np.ndarray):
+        """int8 codes and int32 lengths on the device (the unpacked step)."""
+        return self._upload(codes, np.asarray(lengths, dtype=np.int32))
+
+    def _upload_wire(self, codes: np.ndarray, lengths: np.ndarray):
+        """The wire of the packed steps on the device: 2-bit codes, N mask
+        and uint16 lengths, packed on the host (pack_codes_host)."""
+        two, nmask = pack_codes_host(codes)
+        return self._upload(two, nmask, np.asarray(lengths, dtype=np.uint16))
 
     def _step(self, didx: DeviceIndex, cfg: AlignConfig, codes: np.ndarray,
               lengths: np.ndarray, with_candidates: bool = False):
-        c, ln = self._upload(codes, lengths)
+        c, ln = self._upload_reads(codes, lengths)
         ms = self._ms_table[torch.clamp(ln, 0, cfg.max_read_len).long()]
         step = align_batch_with_candidates if with_candidates else align_batch
         return step(didx, self.sprof, c, ln, ms, cfg)
+
+    def _step_packed(self, didx: DeviceIndex, cfg: AlignConfig,
+                     codes: np.ndarray, lengths: np.ndarray,
+                     with_counts: bool = False):
+        return align_batch_packed(didx, self.sprof,
+                                  *self._upload_wire(codes, lengths),
+                                  self._ms_table, cfg,
+                                  with_counts=with_counts)
 
     def align_device(self, codes: np.ndarray, lengths: np.ndarray):
         """-> AlignResult, or (AlignResult, CandidateTable) with xa_tags,
@@ -352,22 +405,43 @@ class AlignerEngine:
         device, so streaming_align keeps `depth` batches in flight."""
         return self._step(self.didx, self.cfg, codes, lengths, self.xa_tags)
 
+    def align_device_packed(self, codes: np.ndarray, lengths: np.ndarray,
+                            with_counts: bool = False):
+        """The wire step (streaming_align's step when supports_packed):
+        codes packed on the host, 2-bit codes + N mask + uint16 lengths up
+        (22 B/read at L = 50, against 54 for align_device), PackedResult
+        left on the device (13 B/read to fetch, against 42).
+        -> PackedResult, or (PackedResult, counts [L, 4, 4]) with the
+        profile counts computed in the same step from the same upload."""
+        return self._step_packed(self.didx, self.cfg, codes, lengths,
+                                 with_counts)
+
     def profile_counts_device(self, codes, lengths, res):
         if not hasattr(res, "mapped"):
             res = res[0]
-        c, ln = self._upload(codes, lengths)
+        c, ln = self._upload_reads(codes, lengths)
         return profile_counts_batch(self.didx, c, ln, res.mapped, res.strand,
                                     res.pos, res.ug_equal, self.cfg)
 
-    # --- host finishing ---
-    def to_host(self, batch: ReadBatch, res) -> HostAlignments:
-        """Pull results (and the XA candidate table) to host in ONE
-        transfer; run tracebacks for the rare gapped reads."""
-        cfg = self.cfg
+    def _fetch(self, res):
+        """A step's output on the device -> (AlignResult, CandidateTable or
+        None), numpy, in one transfer; a PackedResult is unpacked here into
+        the same AlignResult."""
+        if isinstance(res, PackedResult):
+            (packed,) = fetch_host(res)
+            return unpack_result_host(packed, self.cfg.band_width), None
         table = None
         if not hasattr(res, "mapped"):
             res, table = res
-        res, table = fetch_host(res, table)
+        return fetch_host(res, table)
+
+    # --- host finishing ---
+    def to_host(self, batch: ReadBatch, res) -> HostAlignments:
+        """Pull a step's results (AlignResult, PackedResult, or with XA the
+        candidate table beside the AlignResult) to host in ONE transfer;
+        run tracebacks for the rare gapped reads."""
+        cfg = self.cfg
+        res, table = self._fetch(res)
         mapped = res.mapped
         strand = res.strand
         pos = res.pos.copy()
@@ -441,7 +515,8 @@ class AlignerEngine:
         lens2 = np.zeros(cap, dtype=np.int32)
         codes2[: rows.shape[0]] = batch.codes[rows]
         lens2[: rows.shape[0]] = lens[rows]
-        return rows, self._step(didx2, cfg2, codes2, lens2)
+        step = self._step_packed if self.supports_packed else self._step
+        return rows, step(didx2, cfg2, codes2, lens2)
 
     def _finish_rescue(self, pend, batch, cigars, *arrays):
         """Merge half of the rescue pass: fetch the small-k results, write
@@ -450,7 +525,7 @@ class AlignerEngine:
         parameters are equal between tiers, so host_tracebacks_batch under
         self.cfg is exact for the rescue tier too."""
         rows, out2 = pend
-        (r2,) = fetch_host(out2)
+        r2, _ = self._fetch(out2)
         m2 = r2.mapped[: rows.shape[0]]
         if not m2.any():
             return arrays
@@ -588,9 +663,9 @@ class AlignerEngine:
         from parasuite_tpu_torch.errormodel.infer import (
             count_indels_from_cigar, count_substitutions_from_cigar)
 
-        if not hasattr(res, "mapped"):
+        if not isinstance(res, PackedResult) and not hasattr(res, "mapped"):
             res = res[0]
-        (res,) = fetch_host(res)
+        res, _ = self._fetch(res)
         strand = res.strand
         n = batch.n_real
         grows = np.nonzero(res.mapped[:n] & ~res.ug_equal[:n])[0]

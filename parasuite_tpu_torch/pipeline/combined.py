@@ -7,18 +7,18 @@ it is imported), pinned to it by tests/test_torch_combined.py. The host half
 project_to_genome, build_combined_index) is numpy and unchanged, so either
 package loads the other's index files.
 
-CombinedEngine streams through the projected step, as the reference does
-without XA (combined.py:305-339): ops/aligner.py::align_batch_combined_packed
-projects transcript candidates to the genome and finalizes every row it
-can on the device, junction winners included; to_host takes those rows
+CombinedEngine streams through the projected step on the wire, as the
+reference does wherever its supports_packed holds (combined.py:305-339):
+ops/aligner.py::align_batch_combined_packed takes the 2-bit codes, projects
+transcript candidates to the genome and finalizes every row it can on the
+device, junction winners included, and returns a PackedResult with the
+PackedCandidates and PackedJunctions records; to_host takes those rows
 verbatim, builds the junction winners' N CIGARs from the spliced->genomic
 table, and sends only the rows with gapped or out-of-bounds candidates
 through the numpy slow path. align_device (the unprojected step: the
-AlignResult plus the whole CandidateTable) serves XA tags, a transcriptome
-of 2**31 spliced bases or more, and the re-run of a batch whose entries
-overflow the compaction caps. The reference's wire bit-packing for the
-remote-TPU tunnel is not ported: the projected step's outputs ride
-unpacked.
+AlignResult plus the whole CandidateTable) serves XA tags, configurations
+past the wire's bounds, a transcriptome of 2**31 spliced bases or more, and
+the re-run of a batch whose entries overflow the compaction caps.
 
 Transcripts are packed as extra "chromosomes" (name prefix "tx::") into ONE
 PackedReference, so a single index and a single device pass cover both
@@ -49,7 +49,8 @@ from parasuite_tpu_torch.pipeline.align import (AlignerEngine, HostAlignments,
                                                 host_tracebacks_batch,
                                                 orient_rows)
 from parasuite_tpu_torch.ops.aligner import (PackedCandidates, TxDeviceTables,
-                                             align_batch_combined_packed)
+                                             align_batch_combined_packed,
+                                             unpack_result_host)
 from parasuite_tpu_torch.pipeline.clusters import tc_count_from_cigar
 
 TX_PREFIX = "tx::"
@@ -335,11 +336,14 @@ class CombinedEngine(AlignerEngine):
         self.packed_entries = 0
         self.packed_junctions = 0
         self.packed_overflow = 0
-        # the projected step (combined.py:305-339 of the reference): not
-        # with XA, which needs every row's candidate table on the host, and
-        # not past int32 spliced offsets (a >2 Gbp spliced transcriptome)
+        # the projected step (combined.py:305-339 of the reference): within
+        # the wire's bounds (the plain engine's supports_packed, computed
+        # with xa_tags off), not with XA, which needs every row's candidate
+        # table on the host, and not past int32 spliced offsets (a >2 Gbp
+        # spliced transcriptome)
         self.supports_packed = (
-            not xa_tags and int(self._tx_len.sum()) + len(self._txs) < 2**31)
+            self.supports_packed and not xa_tags
+            and int(self._tx_len.sum()) + len(self._txs) < 2**31)
         if self.supports_packed:
             self._txt = self._build_tx_device_tables()
 
@@ -416,7 +420,7 @@ class CombinedEngine(AlignerEngine):
                           with_candidates=True)
 
     def align_device_packed(self, codes, lengths, with_counts: bool = False):
-        """Projected step -> (AlignResult, PackedCandidates,
+        """Projected step on the wire -> (PackedResult, PackedCandidates,
         PackedJunctions), left on the device; the caps are
         round(combined_wire_cap * B) entries and
         round(combined_wire_jun_cap * B) junction winners.
@@ -429,10 +433,9 @@ class CombinedEngine(AlignerEngine):
                              "(counts_from_host); with_counts unsupported")
         cfg = self.cfg
         B = codes.shape[0]
-        c, ln = self._upload(codes, lengths)
-        ms = self._ms_table[torch.clamp(ln, 0, cfg.max_read_len).long()]
         return align_batch_combined_packed(
-            self.didx, self.sprof, self._txt, c, ln, ms, cfg,
+            self.didx, self.sprof, self._txt,
+            *self._upload_wire(codes, lengths), self._ms_table, cfg,
             n_genome=self._n_genome, tx_boundary=self._tx_boundary,
             cap_entries=max(1, int(round(cfg.combined_wire_cap * B))),
             cap_junctions=max(1, int(round(cfg.combined_wire_jun_cap * B))))
@@ -442,7 +445,7 @@ class CombinedEngine(AlignerEngine):
         N ops for junction-spanning transcript hits.
 
         devout is the unprojected (AlignResult, CandidateTable) or the
-        projected (AlignResult, PackedCandidates, PackedJunctions); both
+        projected (PackedResult, PackedCandidates, PackedJunctions); both
         reduce to the same flat stream of valid entries in (row, candidate)
         order, so the re-finalization is the same.
 
@@ -465,7 +468,8 @@ class CombinedEngine(AlignerEngine):
                 raise RuntimeError("combined XA mode requires the "
                                    "unprojected candidate table "
                                    "(supports_packed is False with xa_tags)")
-            res, pc, pj = fetch_host(*devout)  # one device->host transfer
+            packed, pc, pj = fetch_host(*devout)  # one device->host copy
+            res = unpack_result_host(packed, cfg.band_width)
             n_sel, n_jun = int(pc.n_sel), int(pj.n_jun)
             self.packed_batches += 1
             if n_sel > pc.row.shape[0] or n_jun > pj.row.shape[0]:
@@ -475,11 +479,12 @@ class CombinedEngine(AlignerEngine):
             self.packed_entries += n_sel
             self.packed_junctions += n_jun
             g_rows = pc.row[:n_sel].astype(np.int64)
-            e_st = pc.strand[:n_sel].astype(np.int64)
+            flags = pc.flags[:n_sel].astype(np.int64)
             e_pos = pc.pos[:n_sel].astype(np.int64)
             e_score = pc.score[:n_sel].astype(np.int64)
-            e_ug = pc.ug_equal[:n_sel]
-            e_diag = pc.diag[:n_sel].astype(np.int64)
+            e_st = (flags >> 1) & 1
+            e_ug = ((flags >> 2) & 1).astype(bool)
+            e_diag = e_pos + (flags >> 3) - cfg.band_width
             B = batch.codes.shape[0]
             any_tx = np.zeros(B, dtype=bool)
             any_tx[g_rows] = True

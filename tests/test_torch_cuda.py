@@ -2,8 +2,10 @@
 PyTorch version (the extend kernel at every band width it is built for, on
 testing.extend_case's edge cases, and on one 65,536-read batch at the bench
 config; its SASS holds the DPX instructions at every width); align_batch,
-align_batch_with_candidates, a rescue engine
-and CombinedEngine on the card against the same run on CPU tensors; the
+align_batch_with_candidates, the wire step align_batch_packed (with its
+fused counts), a rescue engine and CombinedEngine on the card against the
+same run on CPU tensors; extend_impl / select_impl "jnp" (the plain
+versions, no launch) and "pallas" against "auto" on the card; the
 data-parallel step and the chromosome-sharded step on the card (one card
 given twice, so each kernel launches twice a call) against the same steps
 on CPU devices; the wrappers' refusals. Every test needs an NVIDIA GPU and skips elsewhere.
@@ -247,6 +249,73 @@ def test_align_batch_with_candidates_on_card_equals_cpu(cuda, name,
                 getattr(g_out, field).cpu().numpy(),
                 getattr(c_out, field).numpy(), err_msg=field)
     assert bool(cpu[1].valid.any())
+
+
+def _wire(cfg, codes, lengths, dev):
+    """The wire step's inputs on `dev`: 2-bit codes, N mask, uint16 lengths
+    and the min-score table."""
+    from parasuite_tpu_torch.ops.device_index import min_score_table
+
+    two, nmask = tx.pack_codes_host(codes)
+    return (torch.from_numpy(two).to(dev), torch.from_numpy(nmask).to(dev),
+            torch.from_numpy(lengths.astype(np.uint16)).to(dev),
+            torch.from_numpy(min_score_table(cfg)).to(dev))
+
+
+@pytest.mark.parametrize("name", ["bench_L50_W5", "band15_n448"])
+def test_wire_step_on_card_equals_cpu(cuda, name, tiny_ref):
+    """align_batch_packed on the card: the PackedResult bytes and the fused
+    counts equal the CPU run's, one launch of each kernel a step, and the
+    unpacked result equals align_batch on the card field by field."""
+    from parasuite_tpu_torch.pipeline.align import fetch_host
+
+    cfg, didx, sprof, codes, lengths = _inputs(name, tiny_ref)
+    cpu = tx.align_batch_packed(didx, sprof, *_wire(cfg, codes, lengths,
+                                                    "cpu"), cfg,
+                                with_counts=True)
+    d_didx, d_sprof = _to(didx, cuda), _to(sprof, cuda)
+    n_sel, n_ext = cuda_seed.launches, cuda_extend.launches
+    card = tx.align_batch_packed(d_didx, d_sprof,
+                                 *_wire(cfg, codes, lengths, cuda), cfg,
+                                 with_counts=True)
+    assert (cuda_seed.launches, cuda_extend.launches) == (n_sel + 1,
+                                                         n_ext + 1)
+    (c_host,), (g_host,) = fetch_host(cpu[0]), fetch_host(card[0])
+    for c, g in zip(c_host, g_host):
+        assert c.tobytes() == g.tobytes()
+    assert torch.equal(card[1].cpu(), cpu[1])
+    ms = torch.from_numpy(min_scores_host(lengths, cfg)).to(cuda)
+    (want,) = fetch_host(tx.align_batch(
+        d_didx, d_sprof, torch.from_numpy(codes).to(cuda),
+        torch.from_numpy(lengths).to(cuda), ms, cfg))
+    got = tx.unpack_result_host(g_host, cfg.band_width)
+    for field in want._fields:
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field), err_msg=field)
+    assert bool(want.mapped.any())
+
+
+@pytest.mark.parametrize("name", ["bench_L50_W5", "band15_n448"])
+def test_impl_switches_on_card(cuda, name, tiny_ref):
+    """On the card "jnp" takes the plain versions (no launch) and "pallas"
+    the kernels; both give "auto"'s PackedResult byte for byte."""
+    from parasuite_tpu_torch.pipeline.align import fetch_host
+
+    cfg, didx, sprof, codes, lengths = _inputs(name, tiny_ref)
+    d_didx, d_sprof = _to(didx, cuda), _to(sprof, cuda)
+    wire = _wire(cfg, codes, lengths, cuda)
+    outs = {}
+    for impl in ("auto", "jnp", "pallas"):
+        c = cfg.replace(extend_impl=impl, select_impl=impl)
+        n_sel, n_ext = cuda_seed.launches, cuda_extend.launches
+        (outs[impl],) = fetch_host(tx.align_batch_packed(d_didx, d_sprof,
+                                                         *wire, c))
+        want = 0 if impl == "jnp" else 1
+        assert (cuda_seed.launches - n_sel,
+                cuda_extend.launches - n_ext) == (want, want), impl
+    for impl in ("jnp", "pallas"):
+        for a, b in zip(outs["auto"], outs[impl]):
+            assert a.tobytes() == b.tobytes(), impl
 
 
 HOST_FIELDS = ("mapped", "strand", "pos", "score", "mapq", "x0", "x1", "nm",

@@ -302,13 +302,21 @@ def test_profile_e2e_times_without_changing_the_output(mode, j_base,
     assert timers["main.to_host.host_tracebacks_batch"]["calls"] >= 1
     assert timers["main.to_host.tc_count_from_cigar"]["calls"] >= 1
     assert timers["writer.emit.native"]["calls"] >= n // BATCH
-    # what one batch moves: int8 codes + int32 lengths up, 12 int32 fields
-    # of AlignResult down (more with the candidate table or a rescue step)
-    assert rec["bytes_up_per_batch"] >= BATCH * (50 + 4)
-    assert rec["bytes_down_per_batch"] >= BATCH * 12 * 4
-    if mode == "plain":
+    # what one batch moves. The wire step (plain, rescue): 2-bit codes,
+    # N mask and uint16 lengths up (13 + 7 + 2 B/read at L = 50), the
+    # 13 B/read PackedResult down, more with a rescue step. With XA the
+    # unpacked step: int8 codes + int32 lengths up, the AlignResult (10
+    # int32 and 2 bool fields) and the candidate table (2C = 16 entries of
+    # 4 int32 and 2 bool fields) down
+    if mode == "xa":
         assert rec["bytes_up_per_batch"] == BATCH * (50 + 4)
-        assert rec["bytes_down_per_batch"] == BATCH * 12 * 4
+        assert rec["bytes_down_per_batch"] == BATCH * (42 + 16 * 18)
+    else:
+        assert rec["bytes_up_per_batch"] >= BATCH * (13 + 7 + 2)
+        assert rec["bytes_down_per_batch"] >= BATCH * 13
+    if mode == "plain":
+        assert rec["bytes_up_per_batch"] == BATCH * (13 + 7 + 2)
+        assert rec["bytes_down_per_batch"] == BATCH * 13
 
     fresh = AlignerEngine(ref, index, cfg, xa_tags=mode == "xa",
                           device="cpu")

@@ -116,27 +116,32 @@ def build_state(cfg, ref_len, seed=1, device="cuda"):
 
 
 def device_loop(engine, codes, lengths, batch_size, rounds=TIMED_ROUNDS):
-    """The device loop: every batch through engine.align_device, then every
-    result fetched to the host, timed as one region per round
-    -> (rates reads/s per round, the last round's results as numpy
-    namedtuples). One warm-up batch first."""
+    """bench.py's device loop on the port: every batch through
+    engine.align_device_packed (host packing, upload of the wire, the
+    step), then every PackedResult fetched to the host as its bytes, timed
+    as one region per round; the results are unpacked (unpack_result_host)
+    after the clock stops -> (rates reads/s per round, the last round's
+    AlignResults as numpy namedtuples). One warm-up batch first."""
+    from parasuite_tpu_torch.ops.aligner import unpack_result_host
     from parasuite_tpu_torch.pipeline.align import fetch_host
 
     dev = engine.device
     n = codes.shape[0]
-    fetch_host(engine.align_device(codes[:batch_size], lengths[:batch_size]))
+    fetch_host(engine.align_device_packed(codes[:batch_size],
+                                          lengths[:batch_size]))
     sync(dev)
-    rates, results = [], None
+    rates, fetched = [], None
     for _ in range(rounds):
         sync(dev)
         t0 = time.perf_counter()
-        outs = [engine.align_device(codes[i:i + batch_size],
-                                    lengths[i:i + batch_size])
+        outs = [engine.align_device_packed(codes[i:i + batch_size],
+                                           lengths[i:i + batch_size])
                 for i in range(0, n, batch_size)]
-        results = [fetch_host(o)[0] for o in outs]
+        fetched = [fetch_host(o)[0] for o in outs]
         sync(dev)
         rates.append(n / (time.perf_counter() - t0))
-    return rates, results
+    return rates, [unpack_result_host(p, engine.cfg.band_width)
+                   for p in fetched]
 
 
 def accuracy_extras(truth, results) -> dict:

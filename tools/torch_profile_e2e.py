@@ -6,9 +6,10 @@ Per-stage numbers are per-THREAD busy time (the pipeline overlaps its three
 threads, so the slowest thread bounds throughput, not the sum):
 
   reader.next_batch            FASTQ -> ReadBatch (iter_fastq_batches)
-  main.dispatch                align_device / align_device_packed: CUDA
-                               launches are asynchronous, so this is the
-                               enqueue only
+  main.dispatch                align_device_packed (the wire step: host
+                               packing, upload, enqueue) or align_device:
+                               CUDA launches are asynchronous, so beyond
+                               the upload this is the enqueue only
   main.profile_counts          profile_counts_device (profile passes)
   main.to_host                 fetch + host finishing, split into
     .fetch_host                the one device -> host copy; it waits for the
@@ -31,7 +32,8 @@ The device: every dispatched step (rescue steps too) sits between two CUDA
 events; `device_step_ms` is their sum and `device_busy_share` that sum over
 the wall — an upper bound of the busy share, since a launch gap inside a
 step counts as busy. `bytes_up_per_batch` / `bytes_down_per_batch` are what
-_upload and fetch_host moved.
+_upload and fetch_host moved (on the wire step at L = 50: 22 and 13 bytes a
+read).
 
     python tools/torch_profile_e2e.py [n_reads] [--device cuda|cpu]
         [--xa] [--combined] [--index PREFIX --fastq FILE] [--batch-size N]
@@ -198,20 +200,20 @@ class Probe:
 
         upload = engine._upload
 
-        def counted_upload(codes, lengths):
-            c, ln = upload(codes, lengths)
-            self.bytes_up += (c.numel() * c.element_size()
-                              + ln.numel() * ln.element_size())
+        def counted_upload(*arrays):
+            out = upload(*arrays)
+            self.bytes_up += sum(x.numel() * x.element_size() for x in out)
             self.n_uploads += 1
-            return c, ln
+            return out
 
         patch(engine, "_upload", counted_upload)
 
         fetch = palign.fetch_host
 
         def counted_fetch(*parts):
-            self.bytes_down += 4 * sum(int(x.numel()) for p in parts
-                                       if p is not None for x in p)
+            self.bytes_down += sum(x.numel() * x.element_size()
+                                   for p in parts if p is not None
+                                   for x in p)
             self.n_fetches += 1
             return fetch(*parts)
 
