@@ -150,18 +150,33 @@ each prints one line, and any failure raises (exit code != 0):
      both steps in turns (wire, unpacked, unpacked, wire, twice): the same
      output bytes, the align SAM and the pass-1 outputs the JAX package's
      (AT_SCALE).
+ 29. graph: the compiled steps (parasuite_tpu_torch/ops/compiled.py: one
+     CUDA graph per step and key, replayed), which phases 5-28 stream
+     through, against the same steps run eagerly (each CompiledStep's own
+     function): on every batch of the bench world each step kind (plain,
+     XA's candidate table, wire with and without counts, profile counts)
+     equals its eager run at tolerance 0 with 8 calls in flight, and so do
+     the rescue tier's steps on one rescue batch and the combined projected
+     and unprojected steps on one combined batch; keys, graphs and capture
+     ms; PyTorch operators, CUDA events, graph and wrapper launches of a
+     step + fetch; host enqueue ms (the engine call, and the step alone);
+     step + fetch ms alone and as a profile pass; the bench loop
+     (tools/_torch_bench.py device_loop); `cli align` and `twopass
+     --learned-gaps`; graphed and eager in turns, with equal output bytes,
+     the JAX package's (AT_SCALE).
 Phase 4 also holds the select kernel's shared-memory path (rows of 2,048 and
 4,096 entries) to the plain version, as the select_wide line.
-Phases 7-9, 11, 13-22 and 24-28 run on the card and check the exact kernel
+Phases 7-9, 11, 13-22 and 24-29 run on the card and check the exact kernel
 launch counts of their runs; phases 10 and 12 launch none, and phase 23's
 launches happen in its own subprocesses and are not counted here (those of
 phase 26's processes are, from their JSON lines; the CPU leg of phase 25
 runs the plain versions). Every phase line carries elapsed_seconds, the
 time since the run started.
 
-Then one JSON line on the kernels (launches summed over phases 5-28, those
-of phases 15 and 26's processes included, and of phase 28 its CLI runs on
-the wire step), a check that neither jax nor the JAX
+Then one JSON line on the kernels (launches summed over phases 5-29, those
+of phases 15 and 26's processes included, of phase 28 its CLI runs on the
+wire step and of phase 29 its graphed CLI runs), a check that neither jax
+nor the JAX
 package was imported, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -2220,8 +2235,8 @@ def _host_equal(want, got, what: str) -> None:
 def _ops_of(fn) -> dict:
     """What one call of fn (a step and its fetch) puts on the device: the
     PyTorch operators it dispatches, the kernel launches of the two
-    wrappers, and the CUDA kernels and copies the profiler records (None
-    where it records none)."""
+    wrappers, the CUDA graphs it replays, and the CUDA kernels and copies
+    the profiler records (None where it records none)."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -2232,12 +2247,23 @@ def _ops_of(fn) -> dict:
             Count.n += 1
             return func(*args, **(kwargs or {}))
 
+    replay = torch.cuda.CUDAGraph.replay
+    graphs = []
+
+    def counted(graph):
+        graphs.append(graph)
+        return replay(graph)
+
     torch.cuda.synchronize()
     _reset_counters()
-    with Count():
-        fn()
+    torch.cuda.CUDAGraph.replay = counted
+    try:
+        with Count():
+            fn()
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
     torch.cuda.synchronize()
-    out = {"torch_ops": Count.n, **_counters()}
+    out = {"torch_ops": Count.n, **_counters(), "graph_launches": len(graphs)}
     try:
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2473,6 +2499,273 @@ def wire_phase(gpu: str) -> dict:
     return _add(*wire_launches)
 
 
+class _Both:
+    """Stands in for an engine's CompiledStep: each call runs the graphed
+    step and the step's function eagerly on the same inputs, and keeps
+    both outputs."""
+
+    def __init__(self, step):
+        self.step, self.pairs = step, []
+
+    def __call__(self, *tensors, **static):
+        got = self.step(*tensors, **static)
+        self.pairs.append((got, self.step.fn(*tensors, **static)))
+        return got
+
+
+def _spy(engine) -> list:
+    """Every compiled step of engine -> a _Both; -> the _Both objects."""
+    from parasuite_tpu_torch.ops.compiled import CompiledStep
+
+    spies = []
+    for steps in engine._steps.values():
+        for kind, st in steps.items():
+            if isinstance(st, CompiledStep):
+                steps[kind] = _Both(st)
+                spies.append(steps[kind])
+    return spies
+
+
+def _eager(engine):
+    """engine with every compiled step replaced by its function: the
+    eager route, op by op, on the same bound parameters."""
+    from parasuite_tpu_torch.ops.compiled import CompiledStep
+
+    for steps in engine._steps.values():
+        for kind, st in steps.items():
+            if isinstance(st, CompiledStep):
+                steps[kind] = st.fn
+    return engine
+
+
+def _pairs_equal(spies, what: str) -> dict:
+    """Every (graphed, eager) pair of the spies equal at tolerance 0 ->
+    {step name: calls compared}."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    torch.cuda.synchronize()
+    seen = {}
+    for spy in spies:
+        for k, (got, want) in enumerate(spy.pairs):
+            for g, w in zip(tree_leaves(got), tree_leaves(want),
+                            strict=True):
+                if g.dtype != w.dtype or not torch.equal(g, w):
+                    raise AssertionError(f"graph: {what} {spy.step.name} "
+                                         f"call {k} differs from eager")
+        if spy.pairs:
+            seen[spy.step.name] = len(spy.pairs)
+    return seen
+
+
+def _fetch_out(out) -> list:
+    """A step's output on the host: each record through fetch_host, a bare
+    tensor (the fused counts) by .cpu()."""
+    from parasuite_tpu_torch.pipeline.align import fetch_host
+
+    parts = out if isinstance(out, tuple) and not hasattr(out, "_fields") \
+        else (out,)
+    return [x.cpu() if hasattr(x, "cpu") else fetch_host(x) for x in parts]
+
+
+def _graph_stats(engine) -> dict:
+    """{step name: keys, graphs, capture ms} of engine's compiled steps
+    that ran (through a _Both too)."""
+    from parasuite_tpu_torch.ops.compiled import CompiledStep
+
+    steps = [getattr(st, "step", st) for tier in engine._steps.values()
+             for st in tier.values()]
+    return {st.name: {"keys": len(st.entries), "graphs": st.graphs,
+                      "capture_ms": st.capture_ms}
+            for st in steps if isinstance(st, CompiledStep) and st.entries}
+
+
+def graph_phase(gpu: str) -> dict:
+    """The compiled steps (ops/compiled.py: one CUDA graph a step and key,
+    replayed), which phases 5-28 stream through, against the eager
+    functions: equal outputs at tolerance 0 on every batch of the bench
+    world with 8 calls of each step in flight, on one rescue batch and one
+    combined batch; keys, graphs and capture ms; operators, kernels and
+    graph launches a step; host enqueue ms; step + fetch ms alone and as a
+    profile pass; the bench loop and `cli align` / `twopass` FASTQ -> SAM,
+    graphed and eager in turns. -> the kernel launches of the graphed CLI
+    runs (the main path)."""
+    import torch
+
+    import parasuite_tpu_torch.cli as pcli
+    from parasuite_tpu_torch.config import AlignConfig
+    from parasuite_tpu_torch.index import KmerIndex, PackedReference
+    from parasuite_tpu_torch.io.fastq import read_fastq
+    from parasuite_tpu_torch.pipeline.align import AlignerEngine
+    from parasuite_tpu_torch.pipeline.combined import (CombinedEngine,
+                                                       CombinedReference)
+
+    t0 = time.perf_counter()
+    cfg = AlignConfig(max_read_len=READ_LEN, kmer_size=12, batch_size=BATCH,
+                      max_candidates=8, max_occ=16)
+    ref, index = PackedReference.load(WORK / "idx"), KmerIndex.load(
+        WORK / "idx")
+    full = read_fastq(WORK / "all.fastq", READ_LEN)
+    chunks = [(full.codes[i:i + BATCH], full.lengths[i:i + BATCH])
+              for i in range(0, N_READS, BATCH)]
+
+    # (a) every step kind = its eager function, 8 calls in flight each
+    engine = AlignerEngine(ref, index, cfg, device="cuda")
+    spies = _spy(engine)
+    for codes, lens in chunks * 2:
+        res = engine.align_device(codes, lens)
+        engine.profile_counts_device(codes, lens, res)
+        engine._step(engine.didx, cfg, codes, lens, with_candidates=True)
+        engine.align_device_packed(codes, lens)
+        engine.align_device_packed(codes, lens, with_counts=True)
+    compared = {"bench": _pairs_equal(spies, "bench")}
+    keys = {"bench": _graph_stats(engine)}
+    del engine, spies, res
+    rcfg = AlignConfig(max_read_len=RESCUE_LEN, kmer_size=12,
+                       batch_size=RESCUE_BATCH, max_candidates=8, max_occ=16,
+                       rescue_kmer=11)
+    reng = AlignerEngine(ref, index, rcfg, device="cuda")
+    rb = read_fastq(WORK / "rescue.fastq", RESCUE_LEN)
+    rbatch = type(rb)(codes=rb.codes[:RESCUE_BATCH],
+                      lengths=rb.lengths[:RESCUE_BATCH],
+                      names=rb.names[:RESCUE_BATCH],
+                      quals=rb.quals[:RESCUE_BATCH])
+    spies = _spy(reng)
+    cfg2, didx2, cap = reng._rescue
+    for _ in range(2):
+        reng.to_host(rbatch, reng.align_device_packed(rbatch.codes,
+                                                      rbatch.lengths))
+        reng._step(didx2, cfg2, rbatch.codes[:cap], rbatch.lengths[:cap])
+    compared["rescue"] = _pairs_equal(spies, "rescue")
+    keys["rescue"] = _graph_stats(reng)
+    if reng.rescue_mapped <= 0:
+        raise AssertionError("graph: the rescue batch rescued nothing")
+    del reng, spies
+    ceng = CombinedEngine(CombinedReference.load(WORK / "comb/cidx"),
+                          KmerIndex.load(WORK / "comb/cidx"), cfg,
+                          device="cuda")
+    cb = read_fastq(WORK / "comb/all.fastq", READ_LEN)
+    spies = _spy(ceng)
+    for _ in range(2):
+        ceng.align_device_packed(cb.codes[:BATCH], cb.lengths[:BATCH])
+        ceng.align_device(cb.codes[:BATCH], cb.lengths[:BATCH])
+    compared["combined"] = _pairs_equal(spies, "combined")
+    keys["combined"] = _graph_stats(ceng)
+    del ceng, spies
+    torch.cuda.empty_cache()
+
+    # (b) graphed against eager on one engine each: what a step puts on
+    # the device, host enqueue, step + fetch, the bench loop
+    graphed = AlignerEngine(ref, index, cfg, device="cuda")
+    eager = _eager(AlignerEngine(ref, index, cfg, device="cuda"))
+    engines = {"graphed": graphed, "eager": eager}
+    codes, lens = chunks[0]
+    for e in engines.values():
+        for w in (False, True):
+            _fetch_out(e.align_device_packed(codes, lens, with_counts=w))
+    per_step = {f"{mode}{suffix}": _ops_of(
+        lambda e=e, w=bool(suffix): _fetch_out(
+            e.align_device_packed(codes, lens, with_counts=w)))
+        for mode, e in engines.items() for suffix in ("", "_counts")}
+    for name, want in (("graphed", (1, 1, 1)), ("eager", (1, 1, 0))):
+        got = per_step[name]
+        if (got["select_candidates"], got["extend_candidates"],
+                got["graph_launches"]) != want:
+            raise AssertionError(f"graph: {name} step put {got}")
+    wire = {mode: e._upload_wire(codes, lens) for mode, e in engines.items()}
+    steps = {"graphed": graphed._steps[cfg]["packed"],
+             "eager": eager._steps[cfg]["packed"]}
+    enqueue = {f"{m}_{what}": [] for m in engines
+               for what in ("call", "step")}
+    ms = {f"{m}{suffix}": [] for m in engines for suffix in ("", "_counts")}
+    loop = {m: [] for m in engines}
+    for turn in range(10):
+        order = list(engines) if turn % 2 == 0 else list(engines)[::-1]
+        for m in order:
+            e = engines[m]
+            for what, call in (
+                    ("call", lambda: e.align_device_packed(codes, lens)),
+                    ("step", lambda: steps[m](*wire[m], with_counts=False))):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                call()
+                enqueue[f"{m}_{what}"].append(
+                    1e3 * (time.perf_counter() - t1))
+                torch.cuda.synchronize()
+            for suffix, w in (("", False), ("_counts", True)):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                _fetch_out(e.align_device_packed(codes, lens, with_counts=w))
+                torch.cuda.synchronize()
+                ms[f"{m}{suffix}"].append(1e3 * (time.perf_counter() - t1))
+            if turn < 4:
+                loop[m] += tb.device_loop(e, full.codes, full.lengths, BATCH,
+                                          rounds=1)[0]
+    keys["graphed_engine"] = _graph_stats(graphed)
+    del graphed, eager, engines, steps, wire
+    torch.cuda.empty_cache()
+
+    # (c) FASTQ -> SAM through the CLI, graphed and eager in turns
+    load = pcli._load_engine
+    built = []
+
+    def graphed_load(*a, **kw):
+        built.append(load(*a, **kw))
+        return built[-1]
+
+    e2e = {cmd: {"graphed": [], "eager": []} for cmd in ("align", "twopass")}
+    digests, cli_launches, keys["cli"] = {}, [], {}
+    for cmd in ("align", "twopass"):
+        for mode in ("graphed", "eager", "eager", "graphed"):
+            out = WORK / f"graph_{cmd}_{mode}.sam"
+            extra = ["--learned-gaps"] if cmd == "twopass" else []
+            pcli._load_engine = (graphed_load if mode == "graphed" else
+                                 lambda *a, **kw: _eager(load(*a, **kw)))
+            _reset_counters()
+            t1 = time.perf_counter()
+            try:
+                res = _cli_json([cmd, str(WORK / "idx"),
+                                 str(WORK / "all.fastq"), str(out), *extra,
+                                 "--pg-cl", "smoke", "--batch-size",
+                                 str(BATCH), *FLAGS, "--device", "cuda"])
+            finally:
+                pcli._load_engine = load
+            dt = time.perf_counter() - t1
+            want = (1 if cmd == "align" else 2) * _n_batches(N_READS, BATCH)
+            _expect_launches(_counters(), want, f"graph {cmd} {mode}")
+            if mode == "graphed":
+                cli_launches.append(_counters())
+                keys["cli"].setdefault(cmd, [_graph_stats(e) for e in built])
+            built.clear()
+            e2e[cmd][mode].append({
+                "reads_per_s_in_cli": res.get("reads_per_second"),
+                "call_seconds": round(dt, 3),
+                "reads_per_s_call": round(res["reads"] / dt, 1)})
+            names = [out.name] + ([f"{out.name}.pass1.sam",
+                                   f"{out.name}.errorprofile"]
+                                  if cmd == "twopass" else [])
+            digests.setdefault(cmd, {})[mode] = [sha256(WORK / n)
+                                                 for n in names]
+    for cmd, d in digests.items():
+        if d["graphed"] != d["eager"]:
+            raise AssertionError(f"graph: {cmd} outputs differ by route")
+    if digests["align"]["graphed"][0] != AT_SCALE["all.sam"] or \
+            digests["twopass"]["graphed"][1:] != [
+                AT_SCALE["all.bam.pass1.sam"],
+                AT_SCALE["all.bam.errorprofile"]]:
+        raise AssertionError("graph: the CLI outputs differ from the JAX "
+                             "package's")
+    phase("graph", batch=BATCH, compared_calls=compared, keys=keys,
+          per_step=per_step,
+          enqueue_ms={k: {"median": float(np.median(v)), "runs": v}
+                      for k, v in enqueue.items()},
+          step_fetch_ms={k: {"median": float(np.median(v)), "runs": v}
+                         for k, v in ms.items()},
+          bench_loop_reads_per_s=loop, fastq_to_sam_in_turns=e2e,
+          seconds=round(time.perf_counter() - t0, 3), gpu=gpu)
+    return _add(*cli_launches)
+
+
 def main() -> int:
     gpu = environment()
     build()
@@ -2515,8 +2808,10 @@ def main() -> int:
     # tools drive the JAX package
     runs += [bench_leg_phase(gpu), dist_bench_phase(gpu),
              shards_scale_phase(gpu)]
-    # the wire step against the unpacked one, on the worlds above
+    # the wire step against the unpacked one, on the worlds above; the
+    # compiled steps against the eager functions
     runs.append(wire_phase(gpu))
+    runs.append(graph_phase(gpu))
     for k in kernels:
         k["launches"] = sum(r[k["name"]] for r in runs)
     foreign = sorted(m for m in sys.modules

@@ -66,7 +66,8 @@ class AlignConfig:
                                      # UNMAPPED retry through a second device
                                      # pass seeded at this smaller k (same
                                      # scoring/DP; pipeline/align.py
-                                     # _apply_rescue). Targets the 36bp tail
+                                     # _dispatch_rescue / _finish_rescue).
+                                     # Targets the 36bp tail
                                      # where 1% of stress-model reads have no
                                      # error-free 12-mer (SWEEP_LENGTHS_r04:
                                      # seeding-information ceiling 0.9898).

@@ -47,9 +47,6 @@ from parasuite_tpu_torch.ops.cuda_seed import (I32MAX, select_candidates,
                                                select_candidates_plain)
 from parasuite_tpu_torch.ops.device_index import DeviceIndex, ScoreParams
 
-_COMP = (3, 2, 1, 0, 4)
-
-
 class AlignResult(NamedTuple):
     """Per-read alignment outputs (all [B])."""
 
@@ -67,8 +64,11 @@ class AlignResult(NamedTuple):
     tc_count: torch.Tensor    # int32 machine-frame T->C (valid iff ug_equal)
 
 
-def comp_table(device) -> torch.Tensor:
-    return torch.tensor(_COMP, dtype=torch.int32, device=device)
+def complement(codes: torch.Tensor) -> torch.Tensor:
+    """The complement of base codes 0..4 (A<->T, C<->G, N stays N): the
+    table (3, 2, 1, 0, 4) as arithmetic on the codes' device, so a step
+    builds no tensor from host data."""
+    return torch.where(codes == 4, codes, 3 - codes)
 
 
 def repeat_each(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -88,7 +88,7 @@ def orient_reads(codes: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     B, L = c32.shape
     i = torch.arange(L, dtype=torch.int32, device=codes.device)
     src = torch.clamp(lengths[:, None] - 1 - i[None, :], 0, L - 1)
-    rc = comp_table(codes.device)[c32.gather(1, src.long()).long()]
+    rc = complement(c32.gather(1, src.long()))
     rc = torch.where(i[None, :] < lengths[:, None], rc, 4)
     return torch.stack([c32, rc], dim=1)
 
@@ -108,8 +108,9 @@ def seed_diagonals(oriented: torch.Tensor, lengths: torch.Tensor,
     k, S, M = cfg.kmer_size, cfg.max_seeds, cfg.max_occ
     reads2 = oriented.reshape(B * 2, L)
     len2 = repeat_each(lengths, 2)
-    pow4 = torch.tensor([4 ** (k - 1 - q) for q in range(k)],
-                        dtype=torch.int32, device=dev)
+    # 4^(k-1-q) for q < k, from arange on the device (no host data)
+    pow4 = torch.ones(k, dtype=torch.int32, device=dev) << (
+        2 * torch.arange(k - 1, -1, -1, dtype=torch.int32, device=dev))
     j = torch.arange(M, dtype=torch.int32, device=dev)
     n_pos = didx.positions.shape[0]
 

@@ -1,0 +1,177 @@
+"""Compiled device steps: the port's counterpart of the JAX engine's jax.jit.
+
+The JAX engine compiles each device step once per shape
+(jax.jit(functools.partial(step, cfg=cfg), static_argnames=...):
+parasuite_tpu/pipeline/align.py:251-291, pipeline/combined.py:285, :334)
+and replays the program for every batch. CompiledStep does the same with
+CUDA graphs, so a step is one graph launch instead of some 500 kernels and
+copies enqueued op by op from Python:
+
+  * cache: one entry per key -- the shapes and dtypes of the tensor
+    arguments, the values of the static keyword arguments (with_counts,
+    cap_entries, ...) and the cfg the partial carries. A new key is a new
+    capture, as a new shape is a new compile under jit: a short final batch
+    and the rescue step's `cap` rows get entries of their own;
+  * warm-up and capture: a new key runs the function once on a side stream
+    (which builds the kernel library at first use, ops/_build.py); that
+    eager run is the first call's result. The key is then captured with
+    torch.cuda.graph, and every later call copies its tensors into the
+    entry's static inputs and replays;
+  * fresh outputs, as jit returns them: after each replay every output is
+    cloned on the same stream, so results still in flight (stream.py keeps
+    `depth` batches pending, the bench loop a whole round, the rescue step
+    runs while the primary batch is fetched) are never overwritten by the
+    next replay;
+  * parameters by address: the tensors the partial binds (DeviceIndex,
+    ScoreParams, the min-score table, TxDeviceTables) are read where they
+    lie at replay time. They are updated in place, never rebound
+    (AlignerEngine.set_profile copies pass 2's scores into pass 1's);
+  * launch counts: a replay runs no Python, so the launches of the kernel
+    wrappers (cuda_seed.launches, cuda_extend.launches) that a graph holds
+    are counted at capture and added to the counters on every replay;
+  * no eager fallback on CUDA: a capture that fails raises, naming the step
+    and the key.
+
+On the CPU (tests, --device cpu) nothing is captured, and the discipline is
+the same: a call copies its tensors into the entry's inputs, runs the
+function, writes its outputs into the entry's outputs and returns clones of
+those. So a caller that held a result across calls without the clone, or an
+output that aliases a reused buffer, fails on the CPU as on the card.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+from torch.utils import _pytree as pytree
+
+from parasuite_tpu_torch.ops import cuda_extend, cuda_seed
+
+# the launch counters of the kernel wrappers, by kernel name
+KERNELS = {"select_candidates": cuda_seed, "extend_candidates": cuda_extend}
+
+
+def _launch_counts() -> dict:
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+class _Entry:
+    """One key: static inputs and outputs (flat, with the tree spec), and
+    on CUDA the graph and the kernel launches it holds."""
+
+    def __init__(self, inputs):
+        self.inputs = inputs
+        self.graph = None
+        self.outputs = self.spec = None
+        self.held: dict = {}
+        self.capture_ms = 0.0
+
+
+class CompiledStep:
+    """fn, compiled once per key and replayed (see the module docstring).
+
+    fn takes the step's tensors positionally and the names in `static` as
+    keyword arguments; everything else it needs is bound by a partial.
+    The steps of one engine share `pool` (torch.cuda.graph_pool_handle), so
+    their keys reuse each other's scratch memory. That is safe because
+    replays run on one stream and each replay's outputs are cloned before
+    the stream runs anything else."""
+
+    def __init__(self, fn, device, name: str, static=(), pool=None):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.name = name
+        self.static = frozenset(static)
+        self.pool = pool
+        self.entries: dict = {}
+        self._cfg = getattr(fn, "keywords", {}).get("cfg")
+
+    def key(self, tensors, static: dict) -> tuple:
+        return (self._cfg, tuple(sorted(static.items())),
+                tuple((tuple(t.shape), t.dtype) for t in tensors))
+
+    @property
+    def capture_ms(self) -> float:
+        return sum(e.capture_ms for e in self.entries.values())
+
+    @property
+    def graphs(self) -> int:
+        return sum(e.graph is not None for e in self.entries.values())
+
+    def __call__(self, *tensors: torch.Tensor, **static):
+        unknown = set(static) - self.static
+        if unknown:
+            raise TypeError(f"{self.name}: {sorted(unknown)} are not static "
+                            f"arguments of this step")
+        key = self.key(tensors, static)
+        entry = self.entries.get(key)
+        if entry is None:
+            entry = _Entry([torch.empty_like(t) for t in tensors])
+            if self.device.type == "cuda":
+                out = self._capture(entry, key, tensors, static)
+                self.entries[key] = entry
+                return out
+            self.entries[key] = entry
+        for dst, src in zip(entry.inputs, tensors):
+            dst.copy_(src)
+        if entry.graph is None:
+            self._run_into(entry, static)
+        else:
+            entry.graph.replay()
+            for name, n in entry.held.items():
+                KERNELS[name].launches += n
+        return pytree.tree_unflatten([x.clone() for x in entry.outputs],
+                                     entry.spec)
+
+    def _run_into(self, entry: _Entry, static: dict) -> None:
+        """The CPU's replay: fn's outputs are written into the entry's own,
+        as a graph writes into the outputs it captured."""
+        leaves, spec = pytree.tree_flatten(self.fn(*entry.inputs, **static))
+        if entry.outputs is None:
+            entry.outputs, entry.spec = [x.clone() for x in leaves], spec
+            return
+        for dst, src in zip(entry.outputs, leaves):
+            dst.copy_(src)
+
+    def _capture(self, entry: _Entry, key, tensors, static):
+        """Warm up on a side stream (the call's result), then capture."""
+        cur = torch.cuda.current_stream(self.device)
+        for dst, src in zip(entry.inputs, tensors):
+            dst.copy_(src)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = self.fn(*entry.inputs, **static)
+        cur.wait_stream(side)
+        for x in pytree.tree_leaves(out):
+            if isinstance(x, torch.Tensor):
+                x.record_stream(cur)
+        torch.cuda.synchronize(self.device)
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            # the stream context restores the caller's stream whatever the
+            # capture raises
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=self.pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    captured = self.fn(*entry.inputs, **static)
+                finally:
+                    graph.capture_end()
+        except Exception as err:
+            raise RuntimeError(f"CUDA graph capture of step {self.name!r} "
+                               f"failed at key {key}: {err}") from err
+        finally:
+            # the capture launched nothing: its wrapper counts are the
+            # graph's, added back on every replay
+            entry.held = {k: v - before[k]
+                          for k, v in _launch_counts().items()}
+            for name, n in before.items():
+                KERNELS[name].launches = n
+        entry.capture_ms = 1e3 * (time.perf_counter() - t0)
+        entry.outputs, entry.spec = pytree.tree_flatten(captured)
+        entry.graph = graph
+        return out

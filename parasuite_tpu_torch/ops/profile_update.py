@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from parasuite_tpu_torch.config import AlignConfig
-from parasuite_tpu_torch.ops.aligner import comp_table
+from parasuite_tpu_torch.ops.aligner import complement
 from parasuite_tpu_torch.ops.device_index import DeviceIndex
 
 
@@ -38,7 +38,7 @@ def profile_counts_batch(didx: DeviceIndex, codes: torch.Tensor,
     ok_idx = (ridx >= 0) & (ridx < G)
     rb = torch.where(ok_idx, didx.ref_seq[torch.clamp(ridx, 0, G - 1).long()]
                      .to(torch.int32), 4)
-    rb = torch.where(strand[:, None] == 1, comp_table(dev)[rb.long()], rb)
+    rb = torch.where(strand[:, None] == 1, complement(rb), rb)
     cb = codes.to(torch.int32)
 
     valid = (use[:, None] & (i[None, :] < lengths[:, None])

@@ -7,7 +7,10 @@ engine's device, and the streaming step is its wire form align_batch_packed
 (2-bit codes and N mask up, PackedResult down, the profile counts of a
 profile pass fused in) wherever the reference's engine takes it
 (supports_packed); the two-tier rescue pass (config.rescue_kmer) is a second
-step of the same form at the smaller k. Host tracebacks for the rare gapped
+step of the same form at the smaller k. The engine runs every one of these
+steps as an ops/compiled.py::CompiledStep, built in __init__ where the
+reference builds its jax.jit steps: captured once per shape as a CUDA graph
+and replayed (on the CPU, called directly). Host tracebacks for the rare gapped
 winners, XA strings and SAM/BAM emission are numpy and C++ (native/).
 host_traceback, host_tracebacks_batch, LazyCigars, HostAlignments, the XA,
 rescue and emit paths are copies of the reference's (its pipeline package
@@ -16,7 +19,8 @@ imports jax when it is imported), pinned to it by tests/test_torch_*.py.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import functools
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
@@ -37,6 +41,7 @@ from parasuite_tpu_torch.ops.aligner import (AlignResult, CandidateTable,
                                              align_batch_with_candidates,
                                              pack_codes_host,
                                              unpack_result_host)
+from parasuite_tpu_torch.ops.compiled import CompiledStep
 from parasuite_tpu_torch.ops.cuda_seed import check_row_width
 from parasuite_tpu_torch.ops.device_index import (DeviceIndex, ScoreParams,
                                                   min_score_table)
@@ -292,6 +297,17 @@ def orient_rows(codes: np.ndarray, lengths: np.ndarray, rows: np.ndarray,
     return om
 
 
+def unpacked_step(didx: DeviceIndex, sprof: ScoreParams,
+                  ms_table: torch.Tensor, codes: torch.Tensor,
+                  lengths: torch.Tensor, *, cfg: AlignConfig,
+                  with_candidates: bool):
+    """The unpacked step with its min-score lookup: align_batch, or
+    align_batch_with_candidates with the candidate table beside it."""
+    ms = ms_table[torch.clamp(lengths, 0, cfg.max_read_len).long()]
+    step = align_batch_with_candidates if with_candidates else align_batch
+    return step(didx, sprof, codes, lengths, ms, cfg)
+
+
 def resolve_device(device) -> torch.device:
     """torch.device for `device`; raises when CUDA is asked for and absent
     (never falls back to the CPU on its own)."""
@@ -331,8 +347,20 @@ class AlignerEngine:
         self.supports_packed = (not xa_tags and cfg.max_read_len <= 255
                                 and 2 * cfg.max_candidates <= 255
                                 and cfg.band_width <= 15)
-        self.set_profile(s_tensor if s_tensor is not None
-                         else flat_score_tensor(cfg, cfg.max_read_len))
+        s_tensor = (s_tensor if s_tensor is not None
+                    else flat_score_tensor(cfg, cfg.max_read_len))
+        first = ScoreParams.from_tensor(s_tensor, cfg, self.device)
+        # the engine's own score tensors, which set_profile updates in
+        # place (on the CPU from_tensor shares the caller's numpy memory)
+        self.sprof = ScoreParams(*(getattr(first, f.name).clone()
+                                   for f in fields(ScoreParams)))
+        self.set_profile(s_tensor)
+        # the compiled steps (ops/compiled.py), one set a seeding tier,
+        # keyed by the tier's cfg; one graph memory pool for all of them
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
+        self._steps: dict = {}
+        self._build_steps(self.didx, cfg)
         # two-tier seeding rescue (config.rescue_kmer): a second k-mer index
         # at the smaller k; unmapped reads retry through it in to_host. The
         # rescue step takes its min scores from _ms_table (built from cfg):
@@ -349,12 +377,54 @@ class AlignerEngine:
             didx2 = DeviceIndex.from_host(
                 ref, KmerIndex.build(ref.seq, cfg2.kmer_size), self.device)
             self._rescue = (cfg2, didx2, max(256, cfg.batch_size // 8))
+            self._build_steps(didx2, cfg2)
+
+    def _build_steps(self, didx: DeviceIndex, cfg: AlignConfig) -> None:
+        """The compiled steps of one seeding tier, over didx under cfg: the
+        unpacked step, the wire step and the profile counts (the reference's
+        jitted _align / _align_cand, _align_packed, _counts, and the rescue
+        tier's step2)."""
+        self._steps[cfg] = {"didx": didx}
+        self._compile("unpacked", cfg, functools.partial(
+            unpacked_step, didx, self.sprof, self._ms_table, cfg=cfg),
+            static=("with_candidates",))
+        self._compile("packed", cfg, functools.partial(
+            align_batch_packed, didx, self.sprof, ms_table=self._ms_table,
+            cfg=cfg), static=("with_counts",))
+        self._compile("counts", cfg, functools.partial(
+            profile_counts_batch, didx, cfg=cfg))
+
+    def _compile(self, kind: str, cfg: AlignConfig, fn, static=()) -> None:
+        """fn as the tier's compiled step of `kind`, in the engine's graph
+        memory pool."""
+        self._steps[cfg][kind] = CompiledStep(
+            fn, self.device, f"{kind} k={cfg.kmer_size}", static=static,
+            pool=self._pool)
+
+    def _compiled(self, didx: DeviceIndex, cfg: AlignConfig,
+                  kind: str) -> CompiledStep:
+        """The tier's compiled step of `kind`; didx must be the index the
+        tier's steps were built over, since a graph reads it by address."""
+        steps = self._steps[cfg]
+        if steps["didx"] is not didx:
+            raise ValueError(f"no compiled steps over this index under "
+                             f"k={cfg.kmer_size}")
+        return steps[kind]
+
+    def compiled_steps(self) -> dict:
+        """{step name: CompiledStep} of every tier."""
+        return {s.name: s for steps in self._steps.values()
+                for s in steps.values() if isinstance(s, CompiledStep)}
 
     def set_profile(self, s_tensor: np.ndarray) -> None:
-        """Swap in a learned score tensor (pass 2)."""
+        """Swap in a learned score tensor (pass 2). It is copied into the
+        tensors of self.sprof, which the compiled steps read by address (the
+        reference passes it as a runtime argument, not a constant)."""
         self.s_tensor = s_tensor
         self.s_comp = complement_score_tensor(s_tensor)
-        self.sprof = ScoreParams.from_tensor(s_tensor, self.cfg, self.device)
+        new = ScoreParams.from_tensor(s_tensor, self.cfg, self.device)
+        for f in fields(ScoreParams):
+            getattr(self.sprof, f.name).copy_(getattr(new, f.name))
 
     # --- device steps ---
     def _upload(self, *arrays: np.ndarray) -> tuple[torch.Tensor, ...]:
@@ -386,18 +456,15 @@ class AlignerEngine:
 
     def _step(self, didx: DeviceIndex, cfg: AlignConfig, codes: np.ndarray,
               lengths: np.ndarray, with_candidates: bool = False):
-        c, ln = self._upload_reads(codes, lengths)
-        ms = self._ms_table[torch.clamp(ln, 0, cfg.max_read_len).long()]
-        step = align_batch_with_candidates if with_candidates else align_batch
-        return step(didx, self.sprof, c, ln, ms, cfg)
+        return self._compiled(didx, cfg, "unpacked")(
+            *self._upload_reads(codes, lengths),
+            with_candidates=with_candidates)
 
     def _step_packed(self, didx: DeviceIndex, cfg: AlignConfig,
                      codes: np.ndarray, lengths: np.ndarray,
                      with_counts: bool = False):
-        return align_batch_packed(didx, self.sprof,
-                                  *self._upload_wire(codes, lengths),
-                                  self._ms_table, cfg,
-                                  with_counts=with_counts)
+        return self._compiled(didx, cfg, "packed")(
+            *self._upload_wire(codes, lengths), with_counts=with_counts)
 
     def align_device(self, codes: np.ndarray, lengths: np.ndarray):
         """-> AlignResult, or (AlignResult, CandidateTable) with xa_tags,
@@ -419,9 +486,9 @@ class AlignerEngine:
     def profile_counts_device(self, codes, lengths, res):
         if not hasattr(res, "mapped"):
             res = res[0]
-        c, ln = self._upload_reads(codes, lengths)
-        return profile_counts_batch(self.didx, c, ln, res.mapped, res.strand,
-                                    res.pos, res.ug_equal, self.cfg)
+        return self._compiled(self.didx, self.cfg, "counts")(
+            *self._upload_reads(codes, lengths), res.mapped, res.strand,
+            res.pos, res.ug_equal)
 
     def _fetch(self, res):
         """A step's output on the device -> (AlignResult, CandidateTable or

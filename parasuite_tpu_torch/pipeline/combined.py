@@ -18,7 +18,8 @@ table, and sends only the rows with gapped or out-of-bounds candidates
 through the numpy slow path. align_device (the unprojected step: the
 AlignResult plus the whole CandidateTable) serves XA tags, configurations
 past the wire's bounds, a transcriptome of 2**31 spliced bases or more, and
-the re-run of a batch whose entries overflow the compaction caps.
+the re-run of a batch whose entries overflow the compaction caps. Both steps
+run as compiled steps (ops/compiled.py), as the reference jits them.
 
 Transcripts are packed as extra "chromosomes" (name prefix "tx::") into ONE
 PackedReference, so a single index and a single device pass cover both
@@ -346,6 +347,13 @@ class CombinedEngine(AlignerEngine):
             and int(self._tx_len.sum()) + len(self._txs) < 2**31)
         if self.supports_packed:
             self._txt = self._build_tx_device_tables()
+            # the projected step, compiled (ops/compiled.py) as the
+            # reference jits _align_packed_comb, the caps static
+            self._compile("combined", cfg, functools.partial(
+                align_batch_combined_packed, self.didx, self.sprof,
+                self._txt, ms_table=self._ms_table, cfg=cfg,
+                n_genome=self._n_genome, tx_boundary=self._tx_boundary),
+                static=("cap_entries", "cap_junctions"))
 
     def _build_tx_tables(self) -> None:
         """Flat per-transcript arrays for the vectorized projection.
@@ -433,10 +441,8 @@ class CombinedEngine(AlignerEngine):
                              "(counts_from_host); with_counts unsupported")
         cfg = self.cfg
         B = codes.shape[0]
-        return align_batch_combined_packed(
-            self.didx, self.sprof, self._txt,
-            *self._upload_wire(codes, lengths), self._ms_table, cfg,
-            n_genome=self._n_genome, tx_boundary=self._tx_boundary,
+        return self._compiled(self.didx, cfg, "combined")(
+            *self._upload_wire(codes, lengths),
             cap_entries=max(1, int(round(cfg.combined_wire_cap * B))),
             cap_junctions=max(1, int(round(cfg.combined_wire_jun_cap * B))))
 

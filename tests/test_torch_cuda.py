@@ -8,7 +8,11 @@ same run on CPU tensors; extend_impl / select_impl "jnp" (the plain
 versions, no launch) and "pallas" against "auto" on the card; the
 data-parallel step and the chromosome-sharded step on the card (one card
 given twice, so each kernel launches twice a call) against the same steps
-on CPU devices; the wrappers' refusals. Every test needs an NVIDIA GPU and skips elsewhere.
+on CPU devices; the wrappers' refusals; every compiled step of both engines
+(ops/compiled.py: a CUDA graph a key, replayed) against its function run
+eagerly, with nine results held in flight, the launch counts of replays,
+and a step that syncs raising at capture. Every test needs an NVIDIA GPU
+and skips elsewhere.
 
 This file imports no jax, so it also runs on a machine with a card and no
 JAX installed (PARASUITE_TEST_TPU=1 keeps conftest.py from importing jax):
@@ -528,3 +532,119 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(cuda, tiny_ref):
     with pytest.raises(ValueError, match="different devices"):
         cuda_extend.extend_candidates(oriented, tlens.cpu(), cand, didx,
                                       sprof, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the compiled steps (ops/compiled.py): CUDA graphs of every engine step
+# ---------------------------------------------------------------------------
+
+class _Both:
+    """Stands in for an engine's CompiledStep: each call runs the graphed
+    step and the step's function eagerly on the same inputs, and keeps
+    both outputs."""
+
+    def __init__(self, step):
+        self.step, self.pairs = step, []
+
+    def __call__(self, *tensors, **static):
+        got = self.step(*tensors, **static)
+        self.pairs.append((got, self.step.fn(*tensors, **static)))
+        return got
+
+
+GRAPH_KINDS = ["unpacked", "with_candidates", "packed", "packed_counts",
+               "counts", "rescue", "combined", "combined_unprojected"]
+
+
+def _graph_case(kind, port_ref):
+    """-> (engine on the card, its tier cfg and step name for `kind`, the
+    engine call that runs the step, ten batches of one shape)."""
+    from parasuite_tpu_torch.pipeline.align import AlignerEngine
+    from parasuite_tpu_torch.pipeline.combined import CombinedEngine
+
+    if kind.startswith("combined"):
+        comb, index, batch = _combined_world()
+        eng = CombinedEngine(comb, index, COMBINED_CFG, device="cuda")
+        batches = [(np.roll(batch.codes, 13 * k, axis=0), batch.lengths)
+                   for k in range(10)]
+        if kind == "combined":
+            return eng, eng.cfg, "combined", eng.align_device_packed, batches
+        return eng, eng.cfg, "unpacked", eng.align_device, batches
+    cfg = COMBINED_CFG.replace(rescue_kmer=6 if kind == "rescue" else 0)
+    eng = AlignerEngine(port_ref, KmerIndex.build(port_ref.seq, 8), cfg,
+                        xa_tags=kind == "with_candidates", device="cuda")
+    n, L = (256, 36) if kind == "rescue" else (64, 50)
+    batches = []
+    for k in range(10):
+        rng = np.random.default_rng(900 + k)
+        codes, lengths, _ = sample_reads(rng, port_ref, n, L, mutate=3,
+                                         indel=True)
+        codes = np.concatenate([codes, np.full((n, 50 - L), 4, np.int8)],
+                               axis=1)
+        batches.append((codes, lengths))
+    if kind == "rescue":
+        cfg2, didx2, _cap = eng._rescue
+        return eng, cfg2, "packed", lambda c, ln: eng._step_packed(
+            didx2, cfg2, c, ln), batches
+    if kind in ("unpacked", "with_candidates"):
+        return eng, cfg, "unpacked", eng.align_device, batches
+    if kind == "counts":
+        return eng, cfg, "counts", lambda c, ln: eng.profile_counts_device(
+            c, ln, eng.align_device(c, ln)), batches
+    return eng, cfg, "packed", lambda c, ln: eng.align_device_packed(
+        c, ln, with_counts=kind == "packed_counts"), batches
+
+
+@pytest.mark.parametrize("kind", GRAPH_KINDS)
+def test_graphed_steps_equal_eager_on_card(cuda, kind, port_ref):
+    """Every step kind of both engines runs as one replayed CUDA graph and
+    equals its function run eagerly on the same inputs in every output,
+    tolerance 0; each output is compared after all ten calls, so nine
+    were held while later replays ran."""
+    from torch.utils._pytree import tree_leaves
+
+    eng, tier, name, run, batches = _graph_case(kind, port_ref)
+    both = _Both(eng._steps[tier][name])
+    eng._steps[tier][name] = both
+    for b in batches:
+        run(*b)
+    torch.cuda.synchronize()
+    assert len(both.pairs) == 10 and both.step.graphs == 1
+    (entry,) = both.step.entries.values()
+    assert entry.held == ({"select_candidates": 0, "extend_candidates": 0}
+                          if kind == "counts" else
+                          {"select_candidates": 1, "extend_candidates": 1})
+    for k, (got, want) in enumerate(both.pairs):
+        for g, w in zip(tree_leaves(got), tree_leaves(want), strict=True):
+            assert g.dtype == w.dtype and torch.equal(g, w), (kind, k)
+
+
+def test_replays_count_their_launches(cuda, port_ref):
+    """The first call of a key (its eager warm-up) and every replay add one
+    launch of each kernel; the capture adds none."""
+    eng, _tier, _name, run, batches = _graph_case("packed", port_ref)
+    n_sel, n_ext = cuda_seed.launches, cuda_extend.launches
+    for k, b in enumerate(batches[:4]):
+        run(*b)
+        assert (cuda_seed.launches - n_sel, cuda_extend.launches - n_ext) \
+            == (k + 1, k + 1)
+    step = eng.compiled_steps()["packed k=8"]
+    assert step.graphs == 1 and step.capture_ms > 0
+
+
+def test_a_step_that_syncs_raises_at_capture(cuda):
+    """A step with .item() inside raises at capture, naming the step, on
+    every call: it never runs eagerly instead; the caller's stream is
+    restored and the card keeps working."""
+    from parasuite_tpu_torch.ops.compiled import CompiledStep
+
+    step = CompiledStep(lambda x: x * int(x.sum().item()), cuda, "syncs")
+    x = torch.arange(8, device=cuda)
+    for _ in range(2):
+        with pytest.raises(RuntimeError,
+                           match="capture of step 'syncs' failed"):
+            step(x)
+    assert not step.entries
+    assert torch.cuda.current_stream(cuda) == torch.cuda.default_stream(cuda)
+    torch.cuda.synchronize()
+    assert torch.equal((x * 28).cpu(), torch.arange(8) * 28)
