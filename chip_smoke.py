@@ -68,11 +68,11 @@ each prints one line, and any failure raises (exit code != 0):
  12. tools: `cluster` on phase 6's SAM and BAM, `sort` of both and
      `convert` of the sorted BAM to SAM (TOOLS_PINNED), and `convert` of
      the SAM to BAM and back to the same bytes.
- 13. dist_step: the data-parallel step (parallel/dist_align.py) over the
-     machine's cards and over the first card given twice, on one batch of
-     65,536 bench reads; AlignResult and the int64 counts array-equal to
-     the engine's single-device step; one launch of each kernel per mesh
-     device and call;
+ 13. dist_step: the data-parallel step (parallel/dist_align.py, a
+     compiled step a mesh slot) over the machine's cards and over the first
+     card given twice, on one batch of 65,536 bench reads; AlignResult and
+     the int64 counts array-equal to the engine's single-device step; one
+     launch of each kernel per mesh device and call;
  14. dist_file: `dist-align --host-index h --n-hosts 2` for both hosts (in
      this process) on all 262,144 reads and `merge-shards`; the merged SAM
      and .errorprofile have the JAX CLI's digests (DIST_PINNED: those of
@@ -81,8 +81,8 @@ each prints one line, and any failure raises (exit code != 0):
      CLI that share the card (torch.distributed, the counts summed in-step
      by all_reduce; gloo, since NCCL takes one process per card), then as
      one process; each merged to the same two digests; the launches of the
-     processes' JSON lines sum to the batch count; reads/s printed as what
-     it is, two processes on one card;
+     processes' JSON lines sum to the batch count plus one warm-up step a
+     process; reads/s printed as what it is, two processes on one card;
  16. shards: the chromosome-sharded index (parallel/shards.py) on a world
      of two uniform 50 Mbp chromosomes (shards_world) and 65,536 reads of
      50 bp: build_sharded_index over two shards, make_sharded_step on a
@@ -128,7 +128,8 @@ each prints one line, and any failure raises (exit code != 0):
  26. dist_bench: tools/torch_bench_distributed.py at 65,536 reads and one
      round: one and two processes of `dist-align --coordinator` on its 2 Mbp
      world; the records add up and the two-process merged SAM and
-     .errorprofile are the one-process run's bytes;
+     .errorprofile are the one-process run's bytes; a launch a batch and a
+     warm-up step a process;
  27. shards_scale: tools/torch_bench_shards_scale.py at full size, the
      200 Mbp two-chromosome genome on a 2 x 2 data x index mesh (the card
      given four times on a one-card machine), 2,048 reads: the dominance
@@ -164,20 +165,32 @@ each prints one line, and any failure raises (exit code != 0):
      (tools/_torch_bench.py device_loop); `cli align` and `twopass
      --learned-gaps`; graphed and eager in turns, with equal output bytes,
      the JAX package's (AT_SCALE).
+ 30. dist_graph: the multi-device steps compiled (a CompiledStep a mesh
+     slot, and a row's merge in the sharded step) against the same steps
+     with every slot run eagerly, in turns: the data-parallel step at the
+     bench config with 65,536 reads a device over the machine's cards and
+     over card 0 given twice, the sharded step on the shards world (its
+     first output pinned to SHARDS_PINNED) on a 1 x 2 grid of card 0 given
+     twice, and `dist-align --coordinator` as one process (in this process,
+     NCCL); equal outputs at tolerance 0 with every result held, the
+     coordinator's shard the same bytes on both routes and merged to
+     DIST_PINNED; PyTorch operators, graph and wrapper launches a call;
+     host enqueue ms and ms per call (median of 10 turns); keys, graphs
+     and capture ms of every slot; the coordinator's reads/s, g e e g twice.
 Phase 4 also holds the select kernel's shared-memory path (rows of 2,048 and
 4,096 entries) to the plain version, as the select_wide line.
-Phases 7-9, 11, 13-22 and 24-29 run on the card and check the exact kernel
+Phases 7-9, 11, 13-22 and 24-30 run on the card and check the exact kernel
 launch counts of their runs; phases 10 and 12 launch none, and phase 23's
 launches happen in its own subprocesses and are not counted here (those of
 phase 26's processes are, from their JSON lines; the CPU leg of phase 25
 runs the plain versions). Every phase line carries elapsed_seconds, the
 time since the run started.
 
-Then one JSON line on the kernels (launches summed over phases 5-29, those
+Then one JSON line on the kernels (launches summed over phases 5-30, those
 of phases 15 and 26's processes included, of phase 28 its CLI runs on the
-wire step and of phase 29 its graphed CLI runs), a check that neither jax
-nor the JAX
-package was imported, and as the last line
+wire step, of phase 29 its graphed CLI runs and of phase 30 its graphed
+runs), a check that neither jax nor the JAX package was imported, and as
+the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The worlds are pure functions of the seeds, so the digests can be
@@ -1715,7 +1728,9 @@ def dist_coord_phase(gpu: str) -> dict:
                                      f"the card")
         if sum(ln["records"] for ln in lines) != N_READS:
             raise AssertionError(f"dist_coord: processes wrote {lines}")
-        _expect_launches(launches, n_b, f"dist_coord x{n_proc}")
+        # a step a batch, and each process's lockstep warm-up step on an
+        # all-padding batch before its clock
+        _expect_launches(launches, n_b + n_proc, f"dist_coord x{n_proc}")
         report[f"processes_{n_proc}"] = {
             "lines": lines, "launches": launches, "backend": backend,
             "merged": _merge_and_pin("dist_coord", f"coord{n_proc}", n_proc),
@@ -2177,7 +2192,7 @@ def dist_bench_phase(gpu: str) -> dict:
     round (more if its efficiency rule remeasures): the tool fails unless
     the records add up and the two-process output has the one-process
     output's bytes; each process's launches come from its JSON line, one a
-    batch of 8,192 reads."""
+    batch of 8,192 reads and one for its warm-up step."""
     import torch_bench_distributed as tbd
 
     t0 = time.perf_counter()
@@ -2188,9 +2203,10 @@ def dist_bench_phase(gpu: str) -> dict:
           seconds=round(time.perf_counter() - t0, 3), gpu=gpu)
     if not line["same_output"] or line["gpu"] != gpu:
         raise AssertionError(f"dist_bench: {line}")
-    _expect_launches(launches, 2 * rounds * _n_batches(N_DIST_BENCH_READS,
-                                                       tbd.BATCH),
-                     "dist_bench")
+    # a round: one and two processes, a step a batch each, and each
+    # process's warm-up step (1 + 2)
+    _expect_launches(launches, rounds * (2 * _n_batches(
+        N_DIST_BENCH_READS, tbd.BATCH) + 3), "dist_bench")
     return launches
 
 
@@ -2766,6 +2782,281 @@ def graph_phase(gpu: str) -> dict:
     return _add(*cli_launches)
 
 
+def _eager_slots(step):
+    """A multi-device step, bound, with each slot's CompiledStep (each
+    cell's and each row merge's) replaced by its function: the eager route,
+    op by op, over the same replicas and slabs."""
+    if hasattr(step, "cells"):
+        step.cells = [[getattr(c, "fn", c) for c in row]
+                      for row in step.cells]
+        step.merges = [getattr(m, "fn", m) for m in step.merges]
+    else:
+        step.slots = [getattr(s, "fn", s) for s in step.slots]
+    return step
+
+
+class _EagerDist:
+    """Stands in for the data-parallel step run_distributed_host makes: it
+    binds the step on each call and replaces its slots by their
+    functions."""
+
+    def __init__(self, step):
+        self.step = step
+
+    def __call__(self, didx, sprof, *reads):
+        self.step.bind(didx, sprof)
+        return _eager_slots(self.step)(didx, sprof, *reads)
+
+    def compiled_steps(self) -> dict:
+        return self.step.compiled_steps()
+
+
+def _slot_stats(step) -> dict:
+    """{slot name: keys, graphs, capture ms} of a multi-device step."""
+    return {name: {"keys": len(s.entries), "graphs": s.graphs,
+                   "capture_ms": s.capture_ms}
+            for name, s in step.compiled_steps().items()}
+
+
+def _multi_in_turns(label: str, routes: dict, batches: list,
+                    on_card: tuple, per_call: int, n_graphs: int) -> tuple:
+    """One multi-device step, graphed and eager (routes: {"graphed": call,
+    "eager": call}, each call(*batch) -> the step's output):
+      * every batch twice through each route, all results held until the
+        end, then equal at tolerance 0 call by call;
+      * what one call puts on the device (_ops_of): PyTorch operators, graph
+        launches (n_graphs graphed, none eager), per_call launches of each
+        kernel on both routes;
+      * 10 turns: host enqueue ms (the batch already on the card, `on_card`)
+        and ms per call from host arrays and from `on_card`.
+    -> (report, the kernel launches of the graphed route's held calls)."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    held, launches = {}, None
+    for mode, call in routes.items():
+        _reset_counters()
+        held[mode] = [call(*b) for b in batches * 2]
+        torch.cuda.synchronize()
+        if mode == "graphed":
+            launches = _counters()
+            _expect_launches(launches, per_call * len(held[mode]),
+                             f"dist_graph {label} graphed")
+    for k, (got, want) in enumerate(zip(held["graphed"], held["eager"])):
+        for g, w in zip(tree_leaves(got), tree_leaves(want), strict=True):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"dist_graph {label}: call {k} differs "
+                                     f"from eager")
+    compared = len(held["graphed"])
+    del held
+    per_step = {mode: _ops_of(lambda c=call: c(*on_card))
+                for mode, call in routes.items()}
+    for mode, graphs in (("graphed", n_graphs), ("eager", 0)):
+        got = per_step[mode]
+        if (got["select_candidates"], got["extend_candidates"],
+                got["graph_launches"]) != (per_call, per_call, graphs):
+            raise AssertionError(f"dist_graph {label}: {mode} call put {got}")
+    times = {f"{m}_{what}": [] for m in routes
+             for what in ("enqueue", "call_on_card", "call_from_host")}
+    for turn in range(10):
+        order = list(routes) if turn % 2 == 0 else list(routes)[::-1]
+        for m in order:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            routes[m](*on_card)
+            t2 = time.perf_counter()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            routes[m](*batches[0])
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            times[f"{m}_enqueue"].append(1e3 * (t2 - t1))
+            times[f"{m}_call_on_card"].append(1e3 * (t3 - t1))
+            times[f"{m}_call_from_host"].append(1e3 * (t4 - t3))
+    return {"compared_calls": compared, "per_call": per_step,
+            "ms": {k: {"median": float(np.median(v)), "runs": v}
+                   for k, v in times.items()}}, launches
+
+
+def _coordinator_in_turns(cfg) -> tuple:
+    """`dist-align --coordinator` as one process (this one, NCCL on card 0):
+    run_distributed_host on all bench reads at batch BATCH, graphed and
+    eager in turns (g e e g g e e g; eager: the step's slots replaced by
+    their functions); every shard the same bytes, the graphed one merged to
+    the JAX CLI's digests (DIST_PINNED); reads/s over each run's own
+    seconds (after its warm-up step and the all_reduce that sets up the
+    group's communicator). -> (report, the graphed runs' launches)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from parasuite_tpu_torch.index import KmerIndex, PackedReference
+    from parasuite_tpu_torch.parallel import distributed as pd
+    from parasuite_tpu_torch.pipeline.align import AlignerEngine
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dev = pd.initialize(f"127.0.0.1:{port}", 1, 0, "cuda")
+    make = pd.make_dist_align_step
+    made, runs, shards, graphed_launches = [], [], {}, []
+    engine = None
+    try:
+        engine = AlignerEngine(PackedReference.load(WORK / "idx"),
+                               KmerIndex.load(WORK / "idx"), cfg, device=dev)
+        for turn, mode in enumerate(("graphed", "eager", "eager", "graphed")
+                                    * 2):
+            def recorded(*a, _eager=mode == "eager", **kw):
+                step = make(*a, **kw)
+                made.append(_EagerDist(step) if _eager else step)
+                return made[-1]
+
+            prefix = f"dist_graph_{turn}_{mode}"
+            pd.make_dist_align_step = recorded
+            _reset_counters()
+            try:
+                n, _counts, _prof, secs = pd.run_distributed_host(
+                    engine, WORK / "all.fastq", WORK / prefix)
+            finally:
+                pd.make_dist_align_step = make
+            launches = _counters()
+            _expect_launches(launches, _n_batches(N_READS, BATCH) + 1,
+                             f"dist_graph coordinator {mode}")
+            if n != N_READS:
+                raise AssertionError(f"dist_graph coordinator: {n} records")
+            if mode == "graphed":
+                graphed_launches.append(launches)
+            shards[prefix] = sha256(WORK / f"{prefix}.shard0000.sam")
+            runs.append({"mode": mode, "seconds": secs,
+                         "reads_per_s": N_READS / secs,
+                         "graphs": _slot_stats(made[-1])})
+        if len(set(shards.values())) != 1:
+            raise AssertionError(f"dist_graph coordinator: the shards "
+                                 f"differ by route: {shards}")
+    finally:
+        dist.destroy_process_group()
+        del engine
+        torch.cuda.empty_cache()
+    merged = _merge_and_pin("dist_graph coordinator",
+                            "dist_graph_0_graphed", 1)
+    return {"runs": runs, "backend": "nccl", "merged": merged,
+            "shard_sha256": next(iter(shards.values()))}, \
+        _add(*graphed_launches)
+
+
+def dist_graph_phase(gpu: str) -> dict:
+    """The multi-device steps compiled (parallel/dist_align.py,
+    parallel/shards.py: a CompiledStep a mesh slot and a row merge) against
+    the same steps with each slot run eagerly (its CompiledStep's own
+    function), in turns: the data-parallel step at bench.make_cfg() with
+    BATCH reads a device on the bench reads, over the machine's cards and
+    over card 0 given twice; the sharded step on the shards world (k = 12,
+    N_SHARD_READS reads, four rolls of it) on a 1 x 2 grid of card 0 given
+    twice, its first output pinned to SHARDS_PINNED; then `dist-align
+    --coordinator` as one process. Equal outputs at tolerance 0 with every
+    result held; operators and graph launches a call; host enqueue and ms
+    per call; keys, graphs and capture ms; the coordinator's reads/s.
+    -> the kernel launches of the graphed runs (the main path)."""
+    import torch
+
+    from parasuite_tpu_torch.config import AlignConfig
+    from parasuite_tpu_torch.errormodel.scoring import flat_score_tensor
+    from parasuite_tpu_torch.index import KmerIndex, PackedReference
+    from parasuite_tpu_torch.io.fastq import read_fastq
+    from parasuite_tpu_torch.ops.device_index import (DeviceIndex,
+                                                      ScoreParams,
+                                                      min_scores_host)
+    from parasuite_tpu_torch.parallel import make_dist_align_step, make_mesh
+    from parasuite_tpu_torch.parallel.dist_align import graph_stats
+    from parasuite_tpu_torch.parallel.mesh import make_mesh2
+    from parasuite_tpu_torch.parallel.shards import (build_sharded_index,
+                                                     make_sharded_step)
+
+    t0 = time.perf_counter()
+    card0 = torch.device("cuda", 0)
+    cfg = AlignConfig(max_read_len=READ_LEN, kmer_size=12, batch_size=BATCH,
+                      max_candidates=8, max_occ=16)   # bench.make_cfg()
+    report, graphed = {}, []
+
+    # the data-parallel step: BATCH reads a device
+    ref, index = PackedReference.load(WORK / "idx"), KmerIndex.load(
+        WORK / "idx")
+    didx = DeviceIndex.from_host(ref, index, card0)
+    sprof = ScoreParams.from_tensor(flat_score_tensor(cfg, READ_LEN), cfg,
+                                    card0)
+    del index
+    full = read_fastq(WORK / "all.fastq", READ_LEN)
+    meshes = {"machine_cards": make_mesh(),
+              "card0_twice": make_mesh(devices=[card0] * 2)}
+    for name, mesh in meshes.items():
+        n = BATCH * mesh.size
+        batches = [(full.codes[i:i + n], full.lengths[i:i + n],
+                    min_scores_host(full.lengths[i:i + n], cfg))
+                   for i in range(0, N_READS - n + 1, n)]
+        on_card = tuple(torch.from_numpy(x).to(card0) for x in batches[0])
+        steps = {"graphed": make_dist_align_step(cfg, mesh),
+                 "eager": make_dist_align_step(cfg, mesh)}
+        steps["eager"].bind(didx, sprof)
+        _eager_slots(steps["eager"])
+        rep, launches = _multi_in_turns(
+            f"data {name}", {m: (lambda *b, s=s: s(didx, sprof, *b))
+                             for m, s in steps.items()},
+            batches, on_card, mesh.size, mesh.size)
+        report[f"data_{name}"] = {
+            "devices": [str(d) for d in mesh.devices], "reads_a_call": n,
+            **rep, "graphs": _slot_stats(steps["graphed"]),
+            "summed": graph_stats(steps["graphed"])}
+        graphed.append(launches)
+        del steps, on_card
+    del didx, full
+    torch.cuda.empty_cache()
+
+    # the sharded step: the shards world at k = 12
+    scfg = AlignConfig(max_read_len=READ_LEN, kmer_size=12,
+                       batch_size=N_SHARD_READS, max_candidates=8,
+                       max_occ=16)
+    seqs, reads = shards_world()
+    sharded, _full = build_sharded_index(seqs, 2, scfg)
+    del seqs
+    slabs = sharded.slabs(scfg)
+    lengths = np.full(N_SHARD_READS, READ_LEN, dtype=np.int32)
+    ms = min_scores_host(lengths, scfg)
+    batches = [(np.roll(reads, 997 * k, axis=0), lengths, ms)
+               for k in range(4)]
+    on_card = tuple(torch.from_numpy(x).to(card0) for x in batches[0])
+    mesh = make_mesh2(1, 2, devices=[card0] * 2)
+    steps = {"graphed": make_sharded_step(scfg, mesh),
+             "eager": make_sharded_step(scfg, mesh)}
+    steps["eager"].bind(slabs, sharded.orig_chrom, sprof)
+    _eager_slots(steps["eager"])
+    routes = {m: (lambda *b, s=s: s(slabs, sharded.orig_chrom, sprof, *b))
+              for m, s in steps.items()}
+    first = routes["graphed"](*batches[0])
+    digest = shards_digest({k: v.cpu().numpy() for k, v in first.items()},
+                           N_SHARD_READS)
+    if digest != SHARDS_PINNED["all_65536"]:
+        raise AssertionError("dist_graph sharded: differs from the JAX "
+                             "package's sharded step")
+    rep, launches = _multi_in_turns("sharded", routes, batches, on_card, 2,
+                                    3)
+    report["sharded_card0_twice"] = {
+        "devices": [str(d) for d in mesh.devices],
+        "reads_a_call": N_SHARD_READS, "digest_pinned": True, **rep,
+        "graphs": _slot_stats(steps["graphed"]),
+        "summed": graph_stats(steps["graphed"])}
+    graphed.append(launches)
+    del steps, routes, first, on_card, sharded, slabs, sprof
+    torch.cuda.empty_cache()
+
+    # dist-align --coordinator, one process
+    report["coordinator"], launches = _coordinator_in_turns(cfg)
+    graphed.append(launches)
+    phase("dist_graph", **report, launches=_add(*graphed),
+          seconds=round(time.perf_counter() - t0, 3), gpu=gpu)
+    return _add(*graphed)
+
+
 def main() -> int:
     gpu = environment()
     build()
@@ -2812,6 +3103,7 @@ def main() -> int:
     # compiled steps against the eager functions
     runs.append(wire_phase(gpu))
     runs.append(graph_phase(gpu))
+    runs.append(dist_graph_phase(gpu))
     for k in kernels:
         k["launches"] = sum(r[k["name"]] for r in runs)
     foreign = sorted(m for m in sys.modules

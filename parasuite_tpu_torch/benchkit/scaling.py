@@ -6,7 +6,8 @@ align step (parallel.dist_align) over meshes of increasing size with a fixed
 per-device batch (weak scaling, the production regime for a bounded
 read-sharding job) and reports the same table. Each round is timed on the
 host clock around a step that ends in a synchronize of every mesh device;
-the first call of each mesh is a warm-up and is not timed.
+the first call of each mesh is a warm-up (on CUDA it captures each slot's
+graph) and is not timed.
 
 The meshes are cut from `devices` (default: the machine's CUDA devices), so
 a count above what the machine has raises in make_mesh: replicas that share
@@ -21,7 +22,8 @@ import torch
 
 from parasuite_tpu_torch.config import AlignConfig
 from parasuite_tpu_torch.ops.device_index import min_scores_host
-from parasuite_tpu_torch.parallel.dist_align import (make_dist_align_step,
+from parasuite_tpu_torch.parallel.dist_align import (graph_stats,
+                                                     make_dist_align_step,
                                                      shard_batch)
 from parasuite_tpu_torch.parallel.mesh import make_mesh
 
@@ -40,9 +42,18 @@ def measure_scaling(didx, sprof, codes, lengths, cfg: AlignConfig,
     codes/lengths must hold at least max(device_counts) * per_device_reads
     reads (weak scaling: every device processes per_device_reads each step).
     """
+    return scaling_run(didx, sprof, codes, lengths, cfg, device_counts,
+                       per_device_reads, rounds, devices)[0]
+
+
+def scaling_run(didx, sprof, codes, lengths, cfg: AlignConfig,
+                device_counts: list[int], per_device_reads: int,
+                rounds: int = 3, devices=None) -> tuple[dict, list]:
+    """-> (measure_scaling's report, each mesh's compiled graphs: its
+    graph_stats). The warm-up call of a mesh captures its slots."""
     meshes = [make_mesh(n, devices=devices) for n in device_counts]
     ms_all = min_scores_host(lengths, cfg)
-    points = []
+    points, graphs = [], []
     base_rps = None
     for n, mesh in zip(device_counts, meshes):
         step = make_dist_align_step(cfg, mesh, with_counts=True)
@@ -63,5 +74,7 @@ def measure_scaling(didx, sprof, codes, lengths, cfg: AlignConfig,
         points.append({"n_devices": n, "reads_per_s": round(best, 1),
                        "per_device": round(best / n, 1),
                        "efficiency": round(eff, 4)})
-    return {"mode": "weak", "per_device_reads": per_device_reads,
-            "backend": meshes[0].devices[0].type, "points": points}
+        graphs.append({"n_devices": n, **graph_stats(step)})
+    return ({"mode": "weak", "per_device_reads": per_device_reads,
+             "backend": meshes[0].devices[0].type, "points": points},
+            graphs)

@@ -309,9 +309,10 @@ def cmd_benchmark(args) -> int:
 def _benchmark_scaling(args, cfg) -> int:
     """benchmark --scaling: the weak-scaling report of the data-parallel
     step over the first n of the machine's devices of --device's type, for
-    each n asked. Asking for more devices than there are is an error
-    (exit 2) before anything is measured."""
-    from parasuite_tpu_torch.benchkit.scaling import measure_scaling
+    each n asked, and each mesh's compiled graphs (keys, graphs, capture
+    ms). Asking for more devices than there are is an error (exit 2) before
+    anything is measured."""
+    from parasuite_tpu_torch.benchkit.scaling import scaling_run
     from parasuite_tpu_torch.parallel.mesh import make_mesh
     from parasuite_tpu_torch.pipeline.align import resolve_device
     from parasuite_tpu_torch.sim.generate import simulate_reads
@@ -330,10 +331,10 @@ def _benchmark_scaling(args, cfg) -> int:
     codes, lengths, _ = simulate_reads(engine.ref, max(counts) * args.n_reads,
                                        args.read_len, cfg, seed=cfg.seed,
                                        tc_rate=args.tc_rate)
-    rep = measure_scaling(engine.didx, engine.sprof, codes, lengths, cfg,
-                          counts, per_device_reads=args.n_reads,
-                          devices=devices)
-    print(json.dumps({"tool": "benchmark", **rep}))
+    rep, graphs = scaling_run(engine.didx, engine.sprof, codes, lengths,
+                              cfg, counts, per_device_reads=args.n_reads,
+                              devices=devices)
+    print(json.dumps({"tool": "benchmark", **rep, "graphs": graphs}))
     return 0
 
 

@@ -98,7 +98,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
         raise AssertionError("dry run aligned nothing")
     print(f"dryrun_multichip({n_devices}): 1-D data ok — "
           f"{n_mapped}/{codes.shape[0]} reads mapped, "
-          f"profile counts total={int(counts.sum())}")
+          f"profile counts total={int(counts.sum())}, "
+          f"compiled {_graphs(step)}")
 
     # 2-D (data x index) mesh: chromosome-sharded index + cross-shard merge
     n_index = 2 if n_devices % 2 == 0 else 1
@@ -133,7 +134,16 @@ def _dryrun_2d(n_data: int, n_index: int, devices=None) -> None:
         raise AssertionError("2-D dry run aligned nothing")
     print(f"dryrun_multichip 2-D ({n_data}x{n_index} data x index): ok — "
           f"{n_mapped}/{codes.shape[0]} reads mapped across "
-          f"{n_index} index shards")
+          f"{n_index} index shards, compiled {_graphs(step)}")
+
+
+def _graphs(step) -> str:
+    """A multi-device step's compiled steps, keys, graphs and capture ms."""
+    from parasuite_tpu_torch.parallel.dist_align import graph_stats
+
+    g = graph_stats(step)
+    return (f"{g['compiled_steps']} steps, {g['keys']} keys, {g['graphs']} "
+            f"graphs, capture {g['capture_ms']:.1f} ms")
 
 
 if __name__ == "__main__":

@@ -29,8 +29,11 @@ copies enqueued op by op from Python:
   * launch counts: a replay runs no Python, so the launches of the kernel
     wrappers (cuda_seed.launches, cuda_extend.launches) that a graph holds
     are counted at capture and added to the counters on every replay;
-  * no eager fallback on CUDA: a capture that fails raises, naming the step
-    and the key.
+  * no eager fallback on CUDA: a capture that fails raises, naming the step,
+    its device and the key;
+  * the step's device: warm-up, capture and replay run with it as the
+    current device, so a step on cuda:1 (a mesh slot, parallel/) is never
+    captured under cuda:0.
 
 On the CPU (tests, --device cpu) nothing is captured, and the discipline is
 the same: a call copies its tensors into the entry's inputs, runs the
@@ -109,7 +112,10 @@ class CompiledStep:
         if entry is None:
             entry = _Entry([torch.empty_like(t) for t in tensors])
             if self.device.type == "cuda":
-                out = self._capture(entry, key, tensors, static)
+                # the current device is the step's: the kernel wrappers
+                # launch on the runtime's current device
+                with torch.cuda.device(self.device):
+                    out = self._capture(entry, key, tensors, static)
                 self.entries[key] = entry
                 return out
             self.entries[key] = entry
@@ -118,7 +124,8 @@ class CompiledStep:
         if entry.graph is None:
             self._run_into(entry, static)
         else:
-            entry.graph.replay()
+            with torch.cuda.device(self.device):
+                entry.graph.replay()
             for name, n in entry.held.items():
                 KERNELS[name].launches += n
         return pytree.tree_unflatten([x.clone() for x in entry.outputs],
@@ -163,7 +170,8 @@ class CompiledStep:
                     graph.capture_end()
         except Exception as err:
             raise RuntimeError(f"CUDA graph capture of step {self.name!r} "
-                               f"failed at key {key}: {err}") from err
+                               f"failed on {self.device} at key {key}: "
+                               f"{err}") from err
         finally:
             # the capture launched nothing: its wrapper counts are the
             # graph's, added back on every replay

@@ -30,6 +30,12 @@ of a step is issued by every process, in step order, before anything that
 may return early. A peer that dies does not leave the others waiting for
 good: the group has a finite timeout (GROUP_TIMEOUT_S).
 
+The step is compiled (dist_align: one CUDA graph a key, replayed). Before
+its clock every process runs it once on an all-padding batch and drops the
+output, and sums one zero matrix over the group, so a process's seconds
+leave out the capture and the communicator's set-up, as the reference's
+leave out its compile. The all_reduce stays outside the graph.
+
 Shard files and .done.json manifests use the same layout as
 multihost.run_host_shard, so multihost.merge_host_outputs works unchanged.
 """
@@ -48,7 +54,8 @@ import torch
 from parasuite_tpu_torch.io.batch import ReadBatch
 from parasuite_tpu_torch.io.fastq import (count_fastq_records,
                                           iter_fastq_batches)
-from parasuite_tpu_torch.parallel.dist_align import make_dist_align_step
+from parasuite_tpu_torch.parallel.dist_align import (graph_stats,
+                                                     make_dist_align_step)
 from parasuite_tpu_torch.parallel.mesh import make_mesh
 from parasuite_tpu_torch.utils.runlog import NULL_LOG
 
@@ -146,12 +153,19 @@ def run_distributed_host(engine, fastq, out_prefix, *,
 
     empty = ReadBatch(codes=np.full((B, L), 4, dtype=np.int8),
                       lengths=np.zeros(B, dtype=np.int32))
+    # lockstep warm-up: every process runs the step once on an all-padding
+    # batch, whose output is dropped (never summed), so the timed loop
+    # below leaves out the kernels' build and the step's capture, as the
+    # reference's leaves out its compile. The reference's warm-up step holds
+    # its psum; here one all_reduce of a zero matrix sets up the group's
+    # communicator (NCCL's at its first collective) before the clock too.
+    step(engine.didx, engine.sprof, empty.codes, empty.lengths,
+         ms_table[np.clip(empty.lengths, 0, L)])
+    if reduce_counts:
+        _all_reduce_counts(torch.zeros((L, 4, 4), dtype=torch.int64,
+                                       device=engine.device))
     if engine.device.type == "cuda":
-        # the kernel library is built and loaded before the clock starts
-        # (there is no compile of the step itself to warm up)
-        from parasuite_tpu_torch.ops._build import load
-
-        load()
+        torch.cuda.synchronize(engine.device)
     t0 = time.perf_counter()
     it = iter_fastq_batches(fastq, B, L, stride_shards=nproc, shard_index=pid)
     with open(shard, "wb") as fh:
@@ -269,5 +283,5 @@ def run_distributed_host(engine, fastq, out_prefix, *,
         {"records": n_records, "profiled": n_profiled,
          "batch_records": batch_records}))
     log.event("dist.done", records=n_records, steps=n_steps,
-              seconds=round(elapsed, 3))
+              seconds=round(elapsed, 3), **graph_stats(step))
     return n_records, counts, n_profiled, elapsed

@@ -46,6 +46,7 @@ with newly-retained equal hits).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -54,10 +55,11 @@ import torch
 from parasuite_tpu_torch.config import AlignConfig
 from parasuite_tpu_torch.index.kmer import KmerIndex
 from parasuite_tpu_torch.index.reference import PackedReference
-from parasuite_tpu_torch.ops.aligner import NEG, align_batch
+from parasuite_tpu_torch.ops.aligner import NEG, AlignResult, align_batch
+from parasuite_tpu_torch.ops.compiled import CompiledStep
 from parasuite_tpu_torch.ops.device_index import DeviceIndex, ScoreParams
-from parasuite_tpu_torch.parallel.dist_align import (Replicas, on_device,
-                                                     split_reads)
+from parasuite_tpu_torch.parallel.dist_align import (Replicas, graph_pools,
+                                                     on_device, split_reads)
 from parasuite_tpu_torch.parallel.mesh import Mesh
 
 UNMAPPED_KEY = 2 ** 30   # chromosome / position key of a shard with no hit
@@ -264,28 +266,41 @@ def merge_shard_results(parts: list, sprof: ScoreParams) -> dict:
     }
 
 
-def make_sharded_step(cfg: AlignConfig, mesh: Mesh, data_axis: str = "data",
-                      index_axis: str = "index"):
-    """-> step(slabs, orig_chrom, sprof, codes, lengths, min_scores)
-    returning per-read merged results in original coordinates: a dict of
-    tensors in read order on the mesh's first device.
+def _merge_flat(sprof: ScoreParams, *flat: torch.Tensor) -> dict:
+    """merge_shard_results over its per-shard tuples laid out flat, each
+    the AlignResult's fields, then chrom_g and local_g (the tensors of a
+    CompiledStep are positional)."""
+    per = len(AlignResult._fields) + 2
+    parts = [(AlignResult(*flat[i:i + per - 2]), flat[i + per - 2],
+              flat[i + per - 1]) for i in range(0, len(flat), per)]
+    return merge_shard_results(parts, sprof)
 
-    codes/lengths/min_scores are split over the data axis, and each run goes
-    to every device of its row; slab s of the ShardedIndex (slabs =
-    ShardedIndex.slabs(cfg), host arrays) lives on the devices of index
-    column s, uploaded once per slab tuple and kept by the step.
-    """
-    if mesh.axis_names != (data_axis, index_axis):
-        raise ValueError(f"the sharded step needs a ({data_axis!r}, "
-                         f"{index_axis!r}) mesh, got {mesh.axis_names}")
-    n_data, n_index = mesh.shape
-    rows = mesh.rows()
-    home = rows[0][0]
-    sprofs = Replicas(mesh.devices)
-    held: dict = {}    # "slabs": the slab tuple and its device copies
 
-    def shards_on_devices(slabs, orig_chrom):
+class ShardedStep:
+    """The sharded step (make_sharded_step): one CompiledStep a mesh cell
+    over _shard_align, bound to the cell's slab and sprof replica, and one a
+    data row over the merge, on the row's first device."""
+
+    def __init__(self, cfg: AlignConfig, mesh: Mesh):
+        self.cfg, self.mesh = cfg, mesh
+        self.rows = mesh.rows()
+        self._sprofs = Replicas(mesh.devices)
+        self._pools = graph_pools(mesh.devices)
+        # the slab tuple and its device copies, kept while the steps that
+        # read them by address live
+        self._held: dict = {}
+        self._bound = (None, None)
+        # the cells' steps [row][column] and the rows' merges: CompiledSteps,
+        # or callables put in their place (the eager route: each one's .fn)
+        self.cells: list = []
+        self.merges: list = []
+
+    def _grid(self, slabs, orig_chrom) -> list:
+        """[row][column] (DeviceIndex, orig_chrom) of the slabs, uploaded
+        once per slab tuple."""
+        held = self._held
         if held.get("slabs") is not slabs[0]:
+            n_index = self.mesh.shape[1]
             if slabs[0].shape[0] != n_index:
                 raise ValueError(f"{slabs[0].shape[0]} index shards on a "
                                  f"mesh with {n_index} index columns")
@@ -295,33 +310,77 @@ def make_sharded_step(cfg: AlignConfig, mesh: Mesh, data_axis: str = "data",
                                         dev),
                  torch.from_numpy(np.ascontiguousarray(orig_chrom[s])
                                   ).to(dev))
-                for s, dev in enumerate(row)] for row in rows]
+                for s, dev in enumerate(row)] for row in self.rows]
         return held["grid"]
 
-    def step(slabs, orig_chrom, sprof, codes, lengths, min_scores):
-        grid = shards_on_devices(slabs, orig_chrom)
-        sp = dict(zip(mesh.devices, sprofs.of("sprof", sprof)))
-        reads = split_reads((codes, lengths, min_scores), n_data)
-        # enqueue every device's alignment before any result is moved
+    def bind(self, slabs, orig_chrom, sprof) -> tuple[list, list]:
+        """(cells, merges) over the slabs on the devices and the replicas
+        of sprof, made anew when either changes object."""
+        grid = self._grid(slabs, orig_chrom)
+        sprofs = self._sprofs.of("sprof", sprof)
+        if self._bound[0] is not grid or self._bound[1] is not sprofs:
+            sp = iter(sprofs)
+            self.cells = [[CompiledStep(
+                functools.partial(_shard_align, didx, orig, next(sp),
+                                  cfg=self.cfg),
+                dev, f"shard {r},{c} {dev}", pool=self._pools[dev])
+                for c, (dev, (didx, orig)) in enumerate(zip(row, shards))]
+                for r, (row, shards) in enumerate(zip(self.rows, grid))]
+            n_index = self.mesh.shape[1]
+            self.merges = [CompiledStep(
+                functools.partial(_merge_flat, sprofs[r * n_index]),
+                row[0], f"merge {r} {row[0]}", pool=self._pools[row[0]])
+                for r, row in enumerate(self.rows)]
+            self._bound = (grid, sprofs)
+        return self.cells, self.merges
+
+    def compiled_steps(self) -> dict:
+        """{name: CompiledStep} of the cells and merges bound so far."""
+        return {s.name: s for s in [*sum(self.cells, []), *self.merges]
+                if isinstance(s, CompiledStep)}
+
+    def __call__(self, slabs, orig_chrom, sprof, codes, lengths,
+                 min_scores) -> dict:
+        cells, merges = self.bind(slabs, orig_chrom, sprof)
+        reads = split_reads((codes, lengths, min_scores), self.mesh.shape[0])
+        # enqueue every cell's alignment before any result is moved
         parts = []
-        for row, shards, (c, ln, ms) in zip(rows, grid, reads):
+        for row, row_cells, (c, ln, ms) in zip(self.rows, cells, reads):
             row_parts = []
-            for dev, (didx, orig) in zip(row, shards):
+            for dev, cell in zip(row, row_cells):
                 with on_device(dev):
-                    row_parts.append(_shard_align(
-                        didx, orig, sp[dev], c.to(dev),
-                        ln.to(dev, torch.int32), ms.to(dev, torch.int32),
-                        cfg))
+                    row_parts.append(cell(c.to(dev), ln.to(dev, torch.int32),
+                                          ms.to(dev, torch.int32)))
             parts.append(row_parts)
         merged = []
-        for row, row_parts in zip(rows, parts):
+        for row, row_parts, merge in zip(self.rows, parts, merges):
             first = row[0]
             with on_device(first):
-                gathered = [(type(res)(*[x.to(first) for x in res]),
-                             cg.to(first), lg.to(first))
-                            for res, cg, lg in row_parts]
-                merged.append(merge_shard_results(gathered, sp[first]))
+                merged.append(merge(*(x.to(first) for res, cg, lg in row_parts
+                                      for x in (*res, cg, lg))))
+        home = self.rows[0][0]
         return {k: torch.cat([m[k].to(home) for m in merged])
                 for k in merged[0]}
 
-    return step
+
+def make_sharded_step(cfg: AlignConfig, mesh: Mesh, data_axis: str = "data",
+                      index_axis: str = "index") -> ShardedStep:
+    """-> step(slabs, orig_chrom, sprof, codes, lengths, min_scores)
+    returning per-read merged results in original coordinates: a dict of
+    tensors in read order on the mesh's first device.
+
+    codes/lengths/min_scores are split over the data axis, and each run goes
+    to every device of its row; slab s of the ShardedIndex (slabs =
+    ShardedIndex.slabs(cfg), host arrays) lives on the devices of index
+    column s, uploaded once per slab tuple and kept by the step.
+
+    Compiled, as the reference jits its shard_map: each cell's alignment and
+    each row's merge is a CompiledStep (ops/compiled.py), replayed as a CUDA
+    graph; the move of a row's results to its first device (the reference's
+    all_gather) is a copy between devices outside the graphs. The step's
+    compiled_steps() names them.
+    """
+    if mesh.axis_names != (data_axis, index_axis):
+        raise ValueError(f"the sharded step needs a ({data_axis!r}, "
+                         f"{index_axis!r}) mesh, got {mesh.axis_names}")
+    return ShardedStep(cfg, mesh)

@@ -648,3 +648,168 @@ def test_a_step_that_syncs_raises_at_capture(cuda):
     assert torch.cuda.current_stream(cuda) == torch.cuda.default_stream(cuda)
     torch.cuda.synchronize()
     assert torch.equal((x * 28).cpu(), torch.arange(8) * 28)
+
+
+# ---------------------------------------------------------------------------
+# the compiled multi-device steps (parallel/dist_align.py, parallel/shards.py)
+# ---------------------------------------------------------------------------
+
+MULTI_KINDS = {"counts": (True, False), "no_counts": (False, False),
+               "candidates": (False, True), "sharded": None}
+
+
+def _sharded_world():
+    """Five chromosomes over two shards (the CPU tests' world) -> (cfg,
+    ShardedIndex, flat score tensor, codes, lengths)."""
+    from parasuite_tpu_torch.parallel.shards import build_sharded_index
+
+    cfg = AlignConfig(max_read_len=50, batch_size=64, kmer_size=8,
+                      max_seeds=4, max_occ=32, max_candidates=8,
+                      band_width=3, chrom_spacer=64)
+    rng = np.random.default_rng(600)
+    seqs = {f"chr{i}": rng.integers(0, 4, 1500 + 700 * i).astype(np.int8)
+            for i in range(5)}
+    sharded, full = build_sharded_index(seqs, 2, cfg)
+    codes, lengths, _ = sample_reads(np.random.default_rng(601), full, 64,
+                                     50, mutate=2, indel=True)
+    return cfg, sharded, flat_score_tensor(cfg, 50), codes, lengths
+
+
+def _multi_step(kind, devices, tiny_ref):
+    """The multi-device step of `kind` over `devices` -> (step, call of a
+    batch (codes, lengths), ten batches of one shape, the ScoreParams the
+    calls pass, on the first device)."""
+    from parasuite_tpu_torch.parallel import make_dist_align_step, make_mesh
+    from parasuite_tpu_torch.parallel.mesh import make_mesh2
+    from parasuite_tpu_torch.parallel.shards import make_sharded_step
+
+    if kind == "sharded":
+        cfg, sharded, s, codes, lengths = _sharded_world()
+        sprof = ScoreParams.from_tensor(s, cfg, devices[0])
+        step = make_sharded_step(cfg, make_mesh2(1, len(devices),
+                                                 devices=devices))
+        slabs = sharded.slabs(cfg)
+
+        def call(c, ln):
+            return step(slabs, sharded.orig_chrom, sprof, c, ln,
+                        min_scores_host(ln, cfg))
+    else:
+        with_counts, with_candidates = MULTI_KINDS[kind]
+        cfg, didx, sprof, codes, lengths = _inputs("bench_L50_W5", tiny_ref)
+        sprof = _to(sprof, devices[0])
+        state = (_to(didx, devices[0]), sprof)
+        step = make_dist_align_step(cfg, make_mesh(devices=devices),
+                                    with_counts=with_counts,
+                                    with_candidates=with_candidates)
+
+        def call(c, ln):
+            return step(*state, c, ln, min_scores_host(ln, cfg))
+    batches = [(np.roll(codes, 7 * k, axis=0), np.roll(lengths, 7 * k))
+               for k in range(10)]
+    return step, call, batches, sprof
+
+
+def _spy_slots(step) -> list:
+    """Every slot of a bound multi-device step -> a _Both; -> the _Both
+    objects (the merges of a sharded step last)."""
+    if hasattr(step, "cells"):
+        step.cells = [[_Both(c) for c in row] for row in step.cells]
+        step.merges = [_Both(m) for m in step.merges]
+        return [*sum(step.cells, []), *step.merges]
+    step.slots = [_Both(s) for s in step.slots]
+    return list(step.slots)
+
+
+@pytest.mark.parametrize("kind", list(MULTI_KINDS))
+def test_graphed_multi_device_steps_equal_eager_on_card(cuda, kind,
+                                                        tiny_ref):
+    """Each slot of the data-parallel step (with counts, without, with
+    candidates) and each cell and merge of the sharded step, on card 0
+    given twice, runs as one replayed CUDA graph and equals its function
+    run eagerly on the same inputs, tolerance 0, every output compared
+    after all ten calls; the first call equals the same step on CPU
+    devices."""
+    from torch.utils._pytree import tree_leaves
+
+    card0 = torch.device("cuda", 0)
+    step, call, batches, _sprof = _multi_step(kind, [card0] * 2, tiny_ref)
+    first = call(*batches[0])       # binds and captures every slot
+    cpu_call = _multi_step(kind, [torch.device("cpu")] * 2, tiny_ref)[1]
+    for g, w in zip(tree_leaves(first), tree_leaves(cpu_call(*batches[0])),
+                    strict=True):
+        assert g.device == card0 and torch.equal(g.cpu(), w), kind
+    spies = _spy_slots(step)
+    for b in batches[1:]:
+        call(*b)
+    torch.cuda.synchronize()
+    assert len(spies) == (3 if kind == "sharded" else 2)
+    for spy in spies:
+        assert len(spy.pairs) == 9 and spy.step.graphs == 1, spy.step.name
+        (entry,) = spy.step.entries.values()
+        want = 0 if spy.step.name.startswith("merge") else 1
+        assert entry.held == {"select_candidates": want,
+                              "extend_candidates": want}, spy.step.name
+        for k, (got, eager) in enumerate(spy.pairs):
+            for g, w in zip(tree_leaves(got), tree_leaves(eager),
+                            strict=True):
+                assert g.dtype == w.dtype and torch.equal(g, w), \
+                    (spy.step.name, k)
+
+
+@pytest.mark.parametrize("kind", ["counts", "sharded"])
+def test_multi_device_replays_count_their_launches(cuda, kind, tiny_ref):
+    """Card 0 given twice: the first call (each slot's eager warm-up) and
+    every replay add two launches of each kernel, one a slot; the captures
+    add none, and each slot holds one graph."""
+    card0 = torch.device("cuda", 0)
+    step, call, batches, _sprof = _multi_step(kind, [card0] * 2, tiny_ref)
+    n_sel, n_ext = cuda_seed.launches, cuda_extend.launches
+    for k, b in enumerate(batches[:4]):
+        call(*b)
+        assert (cuda_seed.launches - n_sel, cuda_extend.launches - n_ext) \
+            == (2 * (k + 1), 2 * (k + 1))
+    steps = step.compiled_steps()
+    assert len(steps) == (3 if kind == "sharded" else 2)
+    assert all(s.graphs == 1 and s.capture_ms > 0 for s in steps.values())
+
+
+@pytest.mark.parametrize("kind", ["counts", "sharded"])
+def test_two_cards_capture_each_slot_on_its_own(cuda, kind, tiny_ref):
+    """A mesh over cards 0 and 1: each slot's graph, inputs and outputs lie
+    on its own card, the result equals the CPU step's, and (data-parallel)
+    new scores copied in place into card 0's ScoreParams reach card 1's
+    replica by the next call. Skipped where the machine has one card."""
+    from torch.utils._pytree import tree_leaves
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    step, call, batches, sprof = _multi_step(kind, cards, tiny_ref)
+    _cpu, cpu_call, _b, cpu_sprof = _multi_step(
+        kind, [torch.device("cpu")] * 2, tiny_ref)
+    for b in batches[:3]:
+        for g, w in zip(tree_leaves(call(*b)), tree_leaves(cpu_call(*b)),
+                        strict=True):
+            assert torch.equal(g.cpu(), w), kind
+    for name, s in step.compiled_steps().items():
+        (entry,) = s.entries.values()
+        assert s.graphs == 1 and str(s.device) in name
+        for t in (*entry.inputs, *entry.outputs):
+            assert t.device == s.device, name
+    if kind == "sharded":
+        return
+    # a learned-looking profile (T->C scored as a match), copied in place
+    # as AlignerEngine.set_profile does
+    cfg = step.cfg
+    s2 = flat_score_tensor(cfg, cfg.max_read_len).copy()
+    s2[:, 3, 1] = s2[:, 3, 3]
+    new = ScoreParams.from_tensor(s2, cfg, "cpu")
+    before = call(*batches[0])[0].score.cpu()
+    for target in (sprof, cpu_sprof):
+        for f in new.__dataclass_fields__:
+            getattr(target, f).copy_(getattr(new, f))
+    got, want = call(*batches[0]), cpu_call(*batches[0])
+    for g, w in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        assert torch.equal(g.cpu(), w)
+    assert not torch.equal(got[0].score[32:].cpu(), before[32:]), \
+        "the new scores did not reach card 1"

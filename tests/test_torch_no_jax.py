@@ -174,8 +174,10 @@ def test_host_tools_and_projected_combined_run_without_jax(tmp_path,
 def test_multi_device_layer_runs_without_jax(tmp_path, tiny_ref):
     """dist-align file-side over two hosts and as a torch.distributed group
     of one, merge-shards on both, benchmark --scaling, and the entry points
-    (entry(), the 1-D and 2-D dry run on explicit CPU devices): no jax in
-    sys.modules, and both merges give the same bytes."""
+    (entry(), the 1-D and 2-D dry run on explicit CPU devices), whose
+    multi-device steps are compiled (ops/compiled.py, one CompiledStep a
+    mesh slot and a row merge): no jax in sys.modules, and both merges give
+    the same bytes."""
     from parasuite_tpu.io.fasta import write_fasta
 
     write_fasta(tmp_path / "ref.fa",
@@ -218,6 +220,8 @@ def test_multi_device_layer_runs_without_jax(tmp_path, tiny_ref):
         "s = run('benchmark', 'idx', '--scaling', '1', '--n-reads', '32',"
         " '--device', 'cpu', *flags)\n"
         "assert s['backend'] == 'cpu' and s['points'][0]['efficiency'] == 1.0\n"
+        "assert s['graphs'] == [{'n_devices': 1, 'compiled_steps': 1, "
+        "'keys': 1, 'graphs': 0, 'capture_ms': 0.0}], s\n"
         "run('benchmark', 'idx', '--scaling', '1,2', '--n-reads', '32',"
         " '--device', 'cpu', *flags, rc=2)\n"
         "fn, args = entry.entry('cpu')\n"
@@ -235,6 +239,10 @@ def test_multi_device_layer_runs_without_jax(tmp_path, tiny_ref):
     assert lines[-1] == "no-jax-ok"
     assert lines[-3].startswith("dryrun_multichip(4): 1-D data ok")
     assert lines[-2].startswith("dryrun_multichip 2-D (2x2 data x index): ok")
+    assert lines[-3].endswith("compiled 4 steps, 4 keys, 0 graphs, "
+                              "capture 0.0 ms")
+    assert lines[-2].endswith("compiled 6 steps, 6 keys, 0 graphs, "
+                              "capture 0.0 ms")
     assert "requested 2 devices, have 1" in p.stderr
 
 

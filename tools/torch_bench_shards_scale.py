@@ -26,8 +26,10 @@ index columns then run in turn on it). At the full size every count that
 depends on no hardware is pinned to the JAX tool's record
 (BENCH_SHARDS_SCALE_r05.json; PINNED below) and the script fails on a
 difference. The line has the original's keys (synth / build / step seconds,
-per-shard slab bytes, the 3 Gbp / 8-shard projection) and the card's
-nvidia-smi line.
+per-shard slab bytes, the 3 Gbp / 8-shard projection), the card's
+nvidia-smi line, and `graphs`: the sharded step's compiled steps (a cell's
+alignment and a row's merge each, ops/compiled.py), keys, CUDA graphs and
+capture ms.
 
     python tools/torch_bench_shards_scale.py [--device cuda|cpu]
 """
@@ -126,6 +128,7 @@ def measure(device: str, total_len: int = TOTAL_LEN,
     from parasuite_tpu_torch.ops.device_index import (DeviceIndex,
                                                       ScoreParams,
                                                       min_scores_host)
+    from parasuite_tpu_torch.parallel.dist_align import graph_stats
     from parasuite_tpu_torch.parallel.mesh import make_mesh2
     from parasuite_tpu_torch.parallel.shards import (build_sharded_index,
                                                      make_sharded_step)
@@ -172,7 +175,7 @@ def measure(device: str, total_len: int = TOTAL_LEN,
     slabs = sharded.slabs(cfg)
     orig = sharded.orig_chrom
     times = []
-    for _ in range(2):        # the first call uploads the slabs
+    for _ in range(2):        # the first uploads the slabs and captures
         tb.sync(home)
         t0 = time.perf_counter()
         out = step(slabs, orig, sprof, codes, lengths, ms)
@@ -201,6 +204,7 @@ def measure(device: str, total_len: int = TOTAL_LEN,
         "sharded_build_seconds": round(build_s, 1),
         "step_first_seconds": round(times[0], 3),
         "step_steady_seconds": round(times[1], 3),
+        "graphs": graph_stats(step),
         **got,
         "sensitivity_vs_truth": round(sens, 4),
         "per_shard_slab_bytes": slab_bytes,
@@ -208,7 +212,8 @@ def measure(device: str, total_len: int = TOTAL_LEN,
         "projected_3gbp_8chip_per_chip_bytes": proj,
         "projected_3gbp_8chip_total_per_chip": sum(proj.values()),
         "note": ("port; step seconds are one call each (the first uploads "
-                 "the slabs), host arrays in and results fetched"
+                 "the slabs and captures the graphs), host arrays in and "
+                 "results fetched"
                  + ("; one card given four times, so the four cells of "
                     "the mesh run in turn on it"
                     if len(set(devices)) == 1 and home.type == "cuda"
