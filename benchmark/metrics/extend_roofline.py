@@ -1,0 +1,14 @@
+"""The extension kernel's share of its roofline, in %: the least time the
+card could take for its launches (harness/bounds.py extend_bound, from the
+launch's shape and the share of candidate slots the run's reads fill) over
+their time in the profiler's trace of the traced library call. Nothing
+when the trace holds no launch of it."""
+
+from harness.trace import EXTEND, kernel_seconds
+
+
+def read(run):
+    ds = kernel_seconds(run.kernels or {}, EXTEND)
+    if not ds:
+        return None
+    return 100 * len(ds) * run.extend_bound_ms / (1e3 * sum(ds))

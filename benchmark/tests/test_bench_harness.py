@@ -1,0 +1,283 @@
+"""CPU tests of the benchmark harness, at a tiny size: the harness finds its
+cells, configurations, mixes and metrics by name (and picks up added files
+with no edit), the plain reference agrees with the program's records, a
+changed or missing record fails the comparison, the result line has its
+keys, and a measurement run without a card prints nothing.
+
+    python -m pytest benchmark/tests -q
+
+The case marked `cuda` runs one tiny cell on the card and skips elsewhere.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+BENCH = Path(__file__).resolve().parents[1]
+ROOT = BENCH.parent
+sys.path[:0] = [str(BENCH), str(ROOT)]
+
+import run  # noqa: E402
+from harness import judge  # noqa: E402
+from harness.spec import Bench  # noqa: E402
+
+SEED = 2**31 + 12_345
+
+
+def tiny_bench(dst: Path) -> Bench:
+    """A copy of the benchmark's folder with a tiny cell beside each real
+    one, and one on the combined configuration for each mix that no cell
+    uses yet: the same mixes, a 600 kbp genome, 4 batches of 512 reads."""
+    shutil.copytree(BENCH, dst / "benchmark",
+                    ignore=shutil.ignore_patterns("tests", "__pycache__"))
+    spec = json.loads((ROOT / "BENCHMARK.json").read_text())
+    for name in ("chr22_align", "chr22_combined"):
+        c = json.loads((BENCH / "configs" / f"{name}.json").read_text())
+        c["genome"].update(length=600_000, n_gap_lead=100_000,
+                           n_gap_internal=1, satellite_bases=2_000,
+                           segdup_blocks=1)
+        c["genome"]["families"] = [[f[0], f[1], max(1, f[2] // 100), f[3],
+                                    f[4]] for f in c["genome"]["families"]]
+        c["align"]["batch_size"] = 512
+        c["library_reads"] = 2048
+        c["sample_reads"] = 512
+        if "annotation" in c:
+            c["annotation"]["genes"] = 20
+        (dst / "benchmark" / "configs" / f"tiny_{name}.json").write_text(
+            json.dumps(c))
+    used = {w["traffic"] for w in spec["workloads"]}
+    for f in sorted((BENCH / "traffic").glob("*.json")):
+        if f.stem not in used:    # a mix kept for a later cell
+            spec["workloads"].append({
+                "name": f"chr22_combined.{f.stem}", "config": "chr22_combined",
+                "traffic": f.stem, "chips": 1, "why": "a mix with no cell"})
+    for w in spec["workloads"]:
+        w["name"], w["config"] = "tiny_" + w["name"], "tiny_" + w["config"]
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "workloads" in m:
+            m["workloads"] = ["tiny_" + x for x in m["workloads"]]
+    (dst / "BENCHMARK.json").write_text(json.dumps(spec))
+    return Bench(dst / "benchmark")
+
+
+@pytest.fixture(scope="module")
+def tiny(tmp_path_factory) -> Bench:
+    return tiny_bench(tmp_path_factory.mktemp("bench"))
+
+
+@pytest.mark.parametrize("cell", [
+    "tiny_chr22_align.parclip50", "tiny_chr22_combined.junction50",
+    "tiny_chr22_align.gapless50", "tiny_chr22_combined.intronic50"])
+def test_reference_agrees_with_the_program(tiny, cell):
+    """The whole run on the CPU: the program's sampled records equal the
+    plain reference's, and every call wrote the whole library."""
+    res = run.run_cell(tiny, cell, SEED, 0.5, False, device="cpu")
+    assert res["correct"], res["checks"]
+    assert res["checks"] == {"records_differ": {"value": 0, "limit": 0},
+                             "calls_short": {"value": 0, "limit": 0}}
+    # a CPU run has no device memory to report
+    assert set(res["metrics"]) == {
+        m["name"] for m in tiny.metrics("end_to_end", cell)} - {
+        "device_mem_peak_mib"}
+    assert res["attempted"] >= 2048 and res["failed"] == 0
+
+
+def test_added_files_are_found_by_name(tmp_path):
+    """A new configuration, mix, cell and per-layer metric are new files
+    and new entries; nothing that was there is edited."""
+    b = tiny_bench(tmp_path)
+    d = b.dir
+    conf = json.loads((d / "configs" / "tiny_chr22_align.json").read_text())
+    conf["genome"]["length"] = 500_000
+    (d / "configs" / "other.json").write_text(json.dumps(conf))
+    mix = json.loads((d / "traffic" / "parclip50.json").read_text())
+    mix["deletion_rate"] = 0.05
+    (d / "traffic" / "indel50.json").write_text(json.dumps(mix))
+    (d / "metrics" / "stream.batches.py").write_text(
+        "def read(run):\n    return float(run.batches)\n")
+    spec = json.loads((b.root / "BENCHMARK.json").read_text())
+    spec["workloads"].append({"name": "other.indel50", "config": "other",
+                              "traffic": "indel50", "chips": 1, "why": "t"})
+    spec["per_layer"].append({"name": "stream.batches", "unit": "batches",
+                              "better": "higher", "source": "program_span",
+                              "layer": "stream", "moves": "reads_per_s",
+                              "workloads": ["other.indel50"]})
+    (b.root / "BENCHMARK.json").write_text(json.dumps(spec))
+    b = Bench(d)
+    assert b.config("other")["genome"]["length"] == 500_000
+    assert b.traffic("indel50")["deletion_rate"] == 0.05
+    res = run.run_cell(b, "other.indel50", SEED, 0.5, True, device="cpu")
+    assert res["correct"], res["checks"]
+    assert res["metrics"]["stream.batches"]["value"] >= 4
+    # the cell's per-layer metrics that a CPU run can read are there too
+    for name in ("stream.reader_ms", "stream.emit_ms", "engine.to_host_ms",
+                 "step.dispatch_ms"):
+        assert name not in res["metrics"]   # listed for other cells only
+    res = run.run_cell(b, "tiny_chr22_align.parclip50", SEED, 0.5, True,
+                       device="cpu")
+    assert {"stream.reader_ms", "stream.emit_ms", "engine.to_host_ms",
+            "engine.tracebacks_ms", "step.dispatch_ms"} <= set(res["metrics"])
+    assert "stream.batches" not in res["metrics"]
+    assert "engine.slow_path_ms" not in res["metrics"]
+
+
+def _altered_answers(monkeypatch):
+    from parasuite_tpu_torch.pipeline.align import AlignerEngine
+    from parasuite_tpu_torch.pipeline.combined import CombinedEngine
+
+    for cls in (AlignerEngine, CombinedEngine):
+        def altered(self, batch, res, _to_host=cls.to_host):
+            host = _to_host(self, batch, res)
+            host.pos[::5] += 1
+            return host
+
+        monkeypatch.setattr(cls, "to_host", altered)
+
+
+def _half_batch_left_out(monkeypatch):
+    from parasuite_tpu_torch.pipeline.align import AlignerEngine
+
+    emit = AlignerEngine.emit_sam
+
+    def half(self, batch, host, writer):
+        class Half:
+            def write(self, line):
+                writer.write(line)
+
+            def write_block(self, data):
+                lines = data.split(b"\n")
+                writer.write_block(b"\n".join(lines[:len(lines) // 2])
+                                   + b"\n")
+
+            def flush(self):
+                writer.flush()
+
+        emit(self, batch, host, Half())
+
+    monkeypatch.setattr(AlignerEngine, "emit_sam", half)
+
+
+@pytest.mark.parametrize("fault", [_altered_answers, _half_batch_left_out])
+@pytest.mark.parametrize("cell", ["tiny_chr22_align.parclip50",
+                                  "tiny_chr22_combined.junction50"])
+def test_a_broken_timed_path_is_not_correct(tiny, monkeypatch, fault, cell):
+    """The run with the path broken underneath: answers altered where they
+    are produced, or half of each batch's records left out."""
+    fault(monkeypatch)
+    res = run.run_cell(tiny, cell, SEED, 0.5, False, device="cpu")
+    assert not res["correct"]
+    assert res["checks"]["records_differ"]["value"] > 0
+
+
+def test_a_changed_record_fails_the_comparison():
+    want = [b"r0\t0\tchr\t11\t37\t50M", b"r1\t4\t*\t0\t0\t*"]
+    idx = np.asarray([0, 2])
+    recs = [want[0], b"x", want[1]]
+    assert judge.judge(recs, want, idx)[0] == 0
+    recs[2] = recs[2].replace(b"\t0\t0", b"\t0\t1")
+    n, ex = judge.judge(recs, want, idx)
+    assert n == 1 and ex[0][0] == 2
+    assert judge.judge(recs[:2], want, idx)[0] == 1   # a missing record
+
+
+@pytest.mark.parametrize("cell", ["tiny_chr22_align.parclip50",
+                                  "tiny_chr22_combined.junction50"])
+def test_the_control_fails(tiny, cell):
+    """The control, the reference with its DP in int8 (saturating), put in
+    the program's place: most sampled records differ from the exact
+    reference's, so records_differ separates it from a sound run."""
+    import control
+
+    r = control.control_reading(tiny, cell, SEED)
+    assert not r["correct"]
+    assert r["records_differ"] > r["sample"] // 2
+
+
+def test_result_line_keys():
+    res = {"correct": True, "attempted": 1, "failed": 0, "metrics": {},
+           "device": {}, "checks": {}}
+    assert list(json.loads(run.result_line(dict(res)))) == [
+        "correct", "attempted", "failed", "metrics", "device", "checks"]
+    res["breakdown"] = {"device_ops": [], "idle_gaps": []}
+    assert list(json.loads(run.result_line(dict(res)))) == [
+        "correct", "attempted", "failed", "metrics", "device", "breakdown",
+        "checks"]
+
+
+def test_no_card_no_result():
+    """A measurement run that finds no CUDA device exits non-zero and
+    prints no result (it never falls back to the CPU)."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    p = subprocess.run([sys.executable, str(BENCH / "run.py"), "--workload",
+                        "chr22_align.parclip50", "--seed", "1", "--seconds",
+                        "1", "--trace", "0"], capture_output=True, text=True,
+                       cwd=ROOT, timeout=300)
+    assert p.returncode != 0 and p.stdout == ""
+
+
+def test_imports(tmp_path):
+    """Nothing a run loads is jax, jaxlib, flax or the JAX package (top-level
+    module names compared whole: the port's name begins with the JAX
+    package's), and the plain reference loads nothing of the port."""
+    code = f"""
+import json, sys
+sys.path[:0] = [{str(BENCH)!r}, {str(ROOT)!r}]
+from harness import reference, world, judge, spec, bounds
+ref_mods = {{m.split('.')[0] for m in sys.modules}}
+import run
+sys.path.insert(0, {str(BENCH / 'tests')!r})
+from test_bench_harness import tiny_bench
+from pathlib import Path
+b = tiny_bench(Path({str(tmp_path)!r}))
+res = run.run_cell(b, 'tiny_chr22_combined.junction50', 7, 0.3, True,
+                   device='cpu')
+print(json.dumps({{'ref': sorted(ref_mods), 'run': run.forbidden_modules(),
+                  'all': sorted({{m.split('.')[0] for m in sys.modules}}),
+                  'correct': res['correct']}}))
+"""
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT, timeout=600)
+    assert p.returncode == 0, p.stderr[-3000:]
+    out = json.loads(p.stdout.strip().splitlines()[-1])
+    assert out["correct"]
+    assert out["run"] == []
+    assert not {"jax", "jaxlib", "flax", "parasuite_tpu"} & set(out["all"])
+    assert "parasuite_tpu_torch" in out["all"]
+    assert not {"parasuite_tpu_torch", "torch", "jax",
+                "parasuite_tpu"} & set(out["ref"])
+
+
+def test_bounds_match_the_smoke_counts():
+    """The frozen counts are chip_smoke.py's (select at 65,536 reads: the
+    bytes bound it printed, 0.019093 ms; extend: 6 operations a cell)."""
+    from harness import bounds
+
+    s = bounds.select_bound(2 * 65536, 7 * 16, 8)
+    assert s["by"] == "bytes"
+    assert abs(s["ms"] - 0.019093473432835822) < 1e-12
+    e = bounds.extend_bound(65536, 8, 50, 5, 20_000_512)
+    assert e["by"] == "operations"
+    assert e["ops"] == 6 * 2 * 65536 * 8 * 11 * 50
+
+
+@pytest.mark.cuda
+def test_a_tiny_cell_on_the_card(tiny):
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    res = run.run_cell(tiny, "tiny_chr22_combined.junction50", SEED, 1.0,
+                       True)
+    assert res["correct"], res["checks"]
+    assert res["device"]["platform"] == "gpu"
+    assert res["metrics"]["extend_roofline"]["value"] < 105
