@@ -98,10 +98,12 @@ each prints one line, and any failure raises (exit code != 0):
      refusal (exit code 2) of one card more than the machine has;
  18. entry: parasuite_tpu_torch.entry's entry() step and its dry run.
  19. profile_e2e: tools/torch_profile_e2e.py on the files of phases 6, 7
-     and 9 — where FASTQ -> SAM time goes (per-thread busy time, to_host and
-     emit split further), the device-busy share of the wall from CUDA
-     events around every step, bytes up and down per batch — in plain mode,
-     with --xa and in combined mode; the probed SAMs are the unprobed ones;
+     and 9 — where FASTQ -> SAM time goes (the program's spans a thread,
+     to_host split further, its counters), the device-busy share of the
+     wall and the share of the idle card the main thread worked, from
+     torch.profiler with the main thread's spans as ranges in its trace,
+     bytes up and down per batch — in plain mode, with --xa and in
+     combined mode; the recorded SAMs are the unrecorded ones;
  20. sweep_lengths: tools/torch_sweep_lengths.py, adaptive placement at 36,
      50, 75 and 100 bp, 65,536 reads each (SWEEP_PINNED);
  21. rescue_sens: sensitivity at 36 bp with rescue_kmer 11 on phase 8's
@@ -1939,8 +1941,10 @@ def entry_phase(gpu: str) -> dict:
 def profile_e2e_phase(gpu: str) -> dict:
     """tools/torch_profile_e2e.py on the smoke's own files: where FASTQ ->
     SAM time goes in plain mode (all bench reads), with --xa (the xa world)
-    and in combined mode (the projected step), and the device-busy share of
-    each run's wall. The probed plain SAM must be the at-scale phase's."""
+    and in combined mode (the projected step), the device-busy share of
+    each run's wall, and every main-thread span found as a range in the
+    profiler's trace. The recorded plain SAM must be the at-scale
+    phase's."""
     import torch_profile_e2e as prof
 
     runs = (("plain", WORK / "idx", WORK / "all.fastq", False, 2),
@@ -1962,6 +1966,10 @@ def profile_e2e_phase(gpu: str) -> dict:
                                  f"{rec['device_busy_share']}")
         if any(t["self_seconds"] < 0 for t in rec["timers"].values()):
             raise AssertionError(f"profile_e2e {name}: a negative timer")
+        if rec["main_ranges"] != rec["main_spans"]:
+            raise AssertionError(f"profile_e2e {name}: {rec['main_ranges']} "
+                                 f"of {rec['main_spans']} main-thread spans "
+                                 f"in the profiler's trace")
     launches = _counters()
     phase("profile_e2e", runs=report, launches=launches, gpu=gpu)
     for name, pinned in (("plain", AT_SCALE["all.sam"]),

@@ -163,17 +163,26 @@ def _command_line(args) -> str:
     return args.pg_cl if args.pg_cl is not None else " ".join(sys.argv[1:])
 
 
-def cmd_align(args) -> int:
+def _run_log(args):
+    """The run's log: --log's file, where the streaming calls' spans and
+    counters are recorded too (written at the end, write_spans); without
+    --log one that keeps nothing."""
     from parasuite_tpu_torch.utils.runlog import RunLog
+
+    return RunLog(args.log, record=True) if args.log else RunLog()
+
+
+def cmd_align(args) -> int:
     from parasuite_tpu_torch.pipeline.stream import streaming_align
 
     cfg = _cfg_from_args(args)
     engine = _load_engine(args, cfg)
-    log = RunLog(args.log) if args.log else RunLog()
+    log = _run_log(args)
     t0 = time.perf_counter()
     n, _, _ = streaming_align(engine, args.fastq, args.out,
                               resume=args.resume, log=log,
                               command_line=_command_line(args))
+    log.write_spans()
     Path(str(args.out) + ".config.json").write_text(cfg.to_json())
     dt = time.perf_counter() - t0
     print(json.dumps({"tool": "align", "reads": n,
@@ -187,12 +196,11 @@ def cmd_align(args) -> int:
 def cmd_twopass(args) -> int:
     from parasuite_tpu_torch.errormodel.infer import (ErrorProfile,
                                                       counts_to_profile)
-    from parasuite_tpu_torch.utils.runlog import RunLog
     from parasuite_tpu_torch.pipeline.stream import streaming_align
 
     cfg = _cfg_from_args(args)
     engine = _load_engine(args, cfg)
-    log = RunLog(args.log) if args.log else RunLog()
+    log = _run_log(args)
     profile_out = args.profile_out or (str(args.out) + ".errorprofile")
     cl = _command_line(args)
 
@@ -222,6 +230,7 @@ def cmd_twopass(args) -> int:
     engine.set_profile(counts_to_profile(profile, cfg))
     n, _, _ = streaming_align(engine, args.fastq, args.out,
                               resume=args.resume, log=log, command_line=cl)
+    log.write_spans()
     Path(str(args.out) + ".config.json").write_text(cfg.to_json())
     out = {"tool": "twopass", "reads": n,
            "profiled_reads": profile.n_reads, "profile": str(profile_out),
@@ -427,10 +436,8 @@ def cmd_dist_align(args) -> int:
         manifest layout is identical, so merge-shards works on either
         mode's output.
     """
-    from parasuite_tpu_torch.utils.runlog import RunLog
-
     cfg = _cfg_from_args(args)
-    log = RunLog(args.log) if args.log else RunLog()
+    log = _run_log(args)
     if args.coordinator:
         if args.num_processes is None or args.process_id is None:
             print("dist-align: --coordinator needs --num-processes and "
@@ -467,6 +474,7 @@ def cmd_dist_align(args) -> int:
     n, _counts, n_prof = run_host_shard(
         engine, args.fastq, args.out_prefix, args.host_index, args.n_hosts,
         resume=args.resume, log=log)
+    log.write_spans()
     print(json.dumps({"tool": "dist-align", "host": args.host_index,
                       "n_hosts": args.n_hosts, "records": n,
                       "profiled": n_prof, "device": str(engine.device)}))
@@ -499,7 +507,8 @@ def cmd_combine(args) -> int:
 def _add_run_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--resume", action="store_true",
                    help="resume from <out>.progress.json checkpoint")
-    p.add_argument("--log", help="append per-batch JSONL stats here")
+    p.add_argument("--log", help="append per-batch JSONL stats here, and "
+                   "at the end each stage's span of each batch")
     p.add_argument("--pg-cl", dest="pg_cl", default=None,
                    help="override the @PG CL: header value (pin it so "
                         "resumed/merged outputs stay byte-identical)")

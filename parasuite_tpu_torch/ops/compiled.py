@@ -40,6 +40,10 @@ the same: a call copies its tensors into the entry's inputs, runs the
 function, writes its outputs into the entry's outputs and returns clones of
 those. So a caller that held a result across calls without the clone, or an
 output that aliases a reused buffer, fails on the CPU as on the card.
+
+Spans (utils/runlog.py): step.replay (copy in, replay or run, clone out)
+and step.capture (a new key's warm-up and capture), which also counts
+step.captures.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from parasuite_tpu_torch.ops import cuda_extend, cuda_seed
+from parasuite_tpu_torch.utils.runlog import count, span
 
 # the launch counters of the kernel wrappers, by kernel name
 KERNELS = {"select_candidates": cuda_seed, "extend_candidates": cuda_extend}
@@ -114,22 +119,24 @@ class CompiledStep:
             if self.device.type == "cuda":
                 # the current device is the step's: the kernel wrappers
                 # launch on the runtime's current device
-                with torch.cuda.device(self.device):
+                with span("step.capture"), torch.cuda.device(self.device):
+                    count("step.captures")
                     out = self._capture(entry, key, tensors, static)
                 self.entries[key] = entry
                 return out
             self.entries[key] = entry
-        for dst, src in zip(entry.inputs, tensors):
-            dst.copy_(src)
-        if entry.graph is None:
-            self._run_into(entry, static)
-        else:
-            with torch.cuda.device(self.device):
-                entry.graph.replay()
-            for name, n in entry.held.items():
-                KERNELS[name].launches += n
-        return pytree.tree_unflatten([x.clone() for x in entry.outputs],
-                                     entry.spec)
+        with span("step.replay"):
+            for dst, src in zip(entry.inputs, tensors):
+                dst.copy_(src)
+            if entry.graph is None:
+                self._run_into(entry, static)
+            else:
+                with torch.cuda.device(self.device):
+                    entry.graph.replay()
+                for name, n in entry.held.items():
+                    KERNELS[name].launches += n
+            return pytree.tree_unflatten([x.clone() for x in entry.outputs],
+                                         entry.spec)
 
     def _run_into(self, entry: _Entry, static: dict) -> None:
         """The CPU's replay: fn's outputs are written into the entry's own,

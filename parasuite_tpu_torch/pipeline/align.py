@@ -47,6 +47,7 @@ from parasuite_tpu_torch.ops.device_index import (DeviceIndex, ScoreParams,
                                                   min_score_table)
 from parasuite_tpu_torch.ops.profile_update import profile_counts_batch
 from parasuite_tpu_torch.pipeline.clusters import tc_count_from_cigar
+from parasuite_tpu_torch.utils.runlog import count, span
 
 
 def host_traceback(ref_seq: np.ndarray, s_tensor: np.ndarray,
@@ -100,19 +101,66 @@ def host_tracebacks_batch(ref_seq: np.ndarray, s_tensor: np.ndarray,
 
     oriented: int8 [G, L] genome-frame reads (N-padded past each length).
     -> [(packed_start_pos, cigar, nm)] per read.
+
+    Spans (utils/runlog.py): engine.tracebacks, with engine.tracebacks.dp
+    (the tables) and engine.tracebacks.walk (the per-read walks) inside;
+    the counter engine.gapped_rows adds G.
     """
-    from parasuite_tpu_torch.oracle.align import NEG, traceback_alignment
+    from parasuite_tpu_torch.oracle.align import traceback_alignment
 
     G = oriented.shape[0]
     if G == 0:
         return []
+    count("engine.gapped_rows", G)
+    w = cfg.band_width
+    lens = lens.astype(np.int64)
+    diags = diags.astype(np.int64)
+    with span("engine.tracebacks"):
+        with span("engine.tracebacks.dp"):
+            M, Ix, Iy, rows, refwin = _banded_dp_batch(
+                ref_seq, s_tensor, s_comp, cfg, oriented, lens, strands,
+                diags)
+        with span("engine.tracebacks.walk"):
+            out = []
+            for g in range(G):
+                ln = int(lens[g])
+                last = M[g, ln - 1]
+                dp_j = int(np.argmax(last))
+                tables = (M[g], Ix[g], Iy[g])
+                start_j, cigar, gap_nm = traceback_alignment(
+                    tables, rows[g], refwin[g], ln, dp_j, cfg)
+                pos = int(diags[g]) - w + start_j
+                nm = gap_nm
+                ri, qi = pos, 0
+                rd_g = oriented[g]
+                for op, oln in cigar:
+                    if op == "M":
+                        rb = ref_seq[ri : ri + oln]
+                        cb = rd_g[qi : qi + oln]
+                        nm += int(np.sum((rb != cb) | (rb == N) | (cb == N)))
+                        ri += oln
+                        qi += oln
+                    elif op == "I":
+                        qi += oln
+                    else:
+                        ri += oln
+                out.append((pos, cigar, nm))
+    return out
+
+
+def _banded_dp_batch(ref_seq, s_tensor, s_comp, cfg, oriented, lens,
+                     strands, diags):
+    """host_tracebacks_batch's tables: the banded DP of all G reads at
+    once (lens and diags int64) -> (M, Ix, Iy [G, L, band], score rows
+    [G, L, 5], reference windows [G, L + 2w])."""
+    from parasuite_tpu_torch.oracle.align import NEG
+
+    G = oriented.shape[0]
     L = int(lens.max())
     w = cfg.band_width
     band = 2 * w + 1
     go, ge = cfg.gap_open, cfg.gap_extend
     Rn = ref_seq.shape[0]
-    lens = lens.astype(np.int64)
-    diags = diags.astype(np.int64)
 
     # score rows for every read: rows[g, i, r] = s_eff[prof, r, read[g, i]]
     i_ax = np.arange(L)
@@ -168,32 +216,7 @@ def host_tracebacks_batch(ref_seq: np.ndarray, s_tensor: np.ndarray,
         M[:, i] = np.where(upd, m_new, M[:, i])
         Ix[:, i] = np.where(upd, ix_new, Ix[:, i])
         Iy[:, i] = np.where(upd, iy_new, Iy[:, i])
-
-    out = []
-    for g in range(G):
-        ln = int(lens[g])
-        last = M[g, ln - 1]
-        dp_j = int(np.argmax(last))
-        tables = (M[g], Ix[g], Iy[g])
-        start_j, cigar, gap_nm = traceback_alignment(
-            tables, rows[g], refwin[g], ln, dp_j, cfg)
-        pos = int(diags[g]) - w + start_j
-        nm = gap_nm
-        ri, qi = pos, 0
-        rd_g = oriented[g]
-        for op, oln in cigar:
-            if op == "M":
-                rb = ref_seq[ri : ri + oln]
-                cb = rd_g[qi : qi + oln]
-                nm += int(np.sum((rb != cb) | (rb == N) | (cb == N)))
-                ri += oln
-                qi += oln
-            elif op == "I":
-                qi += oln
-            else:
-                ri += oln
-        out.append((pos, cigar, nm))
-    return out
+    return M, Ix, Iy, rows, refwin
 
 
 class LazyCigars:
@@ -266,6 +289,7 @@ def fetch_host(*parts):
     order = _widest_first([x.element_size() for x in tensors])
     flat = torch.cat([tensors[i].reshape(-1).view(torch.uint8)
                       for i in order]).cpu().numpy() if tensors else None
+    count("engine.bytes_down", flat.nbytes if tensors else 0)
     arrays, off = [None] * len(tensors), 0
     for i in order:
         x = tensors[i]
@@ -431,18 +455,21 @@ class AlignerEngine:
         """Host arrays -> tensors of the same dtypes and shapes on the
         engine's device, in ONE host->device copy (their bytes in one
         buffer, widest elements first, as fetch_host)."""
-        arrays = [np.ascontiguousarray(a) for a in arrays]
-        order = _widest_first([a.itemsize for a in arrays])
-        buf = torch.from_numpy(np.concatenate(
-            [arrays[i].reshape(-1).view(np.uint8) for i in order]
-        )).to(self.device)
-        out, off = [None] * len(arrays), 0
-        for i in order:
-            a = arrays[i]
-            dtype = torch.from_numpy(a[:0].reshape(-1)).dtype
-            out[i] = buf[off:off + a.nbytes].view(dtype).reshape(a.shape)
-            off += a.nbytes
-        return tuple(out)
+        with span("step.upload"):
+            arrays = [np.ascontiguousarray(a) for a in arrays]
+            order = _widest_first([a.itemsize for a in arrays])
+            buf = torch.from_numpy(np.concatenate(
+                [arrays[i].reshape(-1).view(np.uint8) for i in order]
+            )).to(self.device)
+            count("step.bytes_up", buf.numel())
+            out, off = [None] * len(arrays), 0
+            for i in order:
+                a = arrays[i]
+                dtype = torch.from_numpy(a[:0].reshape(-1)).dtype
+                out[i] = buf[off:off + a.nbytes].view(dtype).reshape(
+                    a.shape)
+                off += a.nbytes
+            return tuple(out)
 
     def _upload_reads(self, codes: np.ndarray, lengths: np.ndarray):
         """int8 codes and int32 lengths on the device (the unpacked step)."""
@@ -451,7 +478,8 @@ class AlignerEngine:
     def _upload_wire(self, codes: np.ndarray, lengths: np.ndarray):
         """The wire of the packed steps on the device: 2-bit codes, N mask
         and uint16 lengths, packed on the host (pack_codes_host)."""
-        two, nmask = pack_codes_host(codes)
+        with span("step.pack"):
+            two, nmask = pack_codes_host(codes)
         return self._upload(two, nmask, np.asarray(lengths, dtype=np.uint16))
 
     def _step(self, didx: DeviceIndex, cfg: AlignConfig, codes: np.ndarray,
@@ -494,13 +522,14 @@ class AlignerEngine:
         """A step's output on the device -> (AlignResult, CandidateTable or
         None), numpy, in one transfer; a PackedResult is unpacked here into
         the same AlignResult."""
-        if isinstance(res, PackedResult):
-            (packed,) = fetch_host(res)
-            return unpack_result_host(packed, self.cfg.band_width), None
-        table = None
-        if not hasattr(res, "mapped"):
-            res, table = res
-        return fetch_host(res, table)
+        with span("engine.fetch"):
+            if isinstance(res, PackedResult):
+                (packed,) = fetch_host(res)
+                return unpack_result_host(packed, self.cfg.band_width), None
+            table = None
+            if not hasattr(res, "mapped"):
+                res, table = res
+            return fetch_host(res, table)
 
     # --- host finishing ---
     def to_host(self, batch: ReadBatch, res) -> HostAlignments:
@@ -524,8 +553,10 @@ class AlignerEngine:
         # fused device counts are pass-1-keyed and never saw them)
         # rescue dispatches NOW and merges after the primary host work, so
         # its device step overlaps the gapped tracebacks
-        pend_rescue = (self._dispatch_rescue(batch, mapped)
-                       if self._rescue is not None else None)
+        pend_rescue = None
+        if self._rescue is not None:
+            with span("engine.rescue"):
+                pend_rescue = self._dispatch_rescue(batch, mapped)
         cigars = LazyCigars(mapped, lens)
         grows = np.nonzero(mapped & ~ug_eq)[0]
         if grows.shape[0]:
@@ -534,21 +565,26 @@ class AlignerEngine:
             tbs = host_tracebacks_batch(
                 self.ref.seq, self.s_tensor, self.s_comp, cfg, om,
                 lens[grows], strand[grows], diag[grows])
-            for k, b in enumerate(grows):
-                p, cigar, total_nm = tbs[k]
-                pos[b] = p
-                cigars[b] = cigar
-                nm[b] = total_nm
-                tc[b] = tc_count_from_cigar(self.ref.seq, p,
-                                            om[k, : int(lens[b])],
-                                            int(strand[b]), cigar)
+            with span("engine.rows"):
+                for k, b in enumerate(grows):
+                    p, cigar, total_nm = tbs[k]
+                    pos[b] = p
+                    cigars[b] = cigar
+                    nm[b] = total_nm
+                    tc[b] = tc_count_from_cigar(self.ref.seq, p,
+                                                om[k, : int(lens[b])],
+                                                int(strand[b]), cigar)
         if pend_rescue is not None:
-            (mapped, strand, pos, score, mapq, x0, x1, nm, ug_eq, diag,
-             tc) = self._finish_rescue(pend_rescue, batch, cigars, mapped,
-                                       strand, pos, score, mapq, x0, x1, nm,
-                                       ug_eq, diag, tc)
-        xa = (self._xa_strings(batch, table, mapped, strand, pos, score)
-              if table is not None else None)
+            with span("engine.rescue"):
+                (mapped, strand, pos, score, mapq, x0, x1, nm, ug_eq, diag,
+                 tc) = self._finish_rescue(pend_rescue, batch, cigars,
+                                           mapped, strand, pos, score, mapq,
+                                           x0, x1, nm, ug_eq, diag, tc)
+        xa = None
+        if table is not None:
+            with span("engine.xa"):
+                xa = self._xa_strings(batch, table, mapped, strand, pos,
+                                      score)
         return HostAlignments(mapped=mapped, strand=strand, pos=pos,
                               score=score, mapq=mapq, x0=x0, x1=x1,
                               nm=nm, ug_equal=ug_eq, cigars=cigars,

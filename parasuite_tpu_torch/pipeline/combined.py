@@ -53,6 +53,7 @@ from parasuite_tpu_torch.ops.aligner import (PackedCandidates, TxDeviceTables,
                                              align_batch_combined_packed,
                                              unpack_result_host)
 from parasuite_tpu_torch.pipeline.clusters import tc_count_from_cigar
+from parasuite_tpu_torch.utils.runlog import count, span
 
 TX_PREFIX = "tx::"
 
@@ -474,16 +475,21 @@ class CombinedEngine(AlignerEngine):
                 raise RuntimeError("combined XA mode requires the "
                                    "unprojected candidate table "
                                    "(supports_packed is False with xa_tags)")
-            packed, pc, pj = fetch_host(*devout)  # one device->host copy
-            res = unpack_result_host(packed, cfg.band_width)
+            with span("engine.fetch"):
+                # one device->host copy
+                packed, pc, pj = fetch_host(*devout)
+                res = unpack_result_host(packed, cfg.band_width)
             n_sel, n_jun = int(pc.n_sel), int(pj.n_jun)
             self.packed_batches += 1
             if n_sel > pc.row.shape[0] or n_jun > pj.row.shape[0]:
                 self.packed_overflow += 1
+                count("engine.overflow_reruns")
                 return self.to_host(
                     batch, self.align_device(batch.codes, batch.lengths))
             self.packed_entries += n_sel
             self.packed_junctions += n_jun
+            count("engine.wire_entries", n_sel)
+            count("engine.junction_winners", n_jun)
             g_rows = pc.row[:n_sel].astype(np.int64)
             flags = pc.flags[:n_sel].astype(np.int64)
             e_pos = pc.pos[:n_sel].astype(np.int64)
@@ -495,7 +501,8 @@ class CombinedEngine(AlignerEngine):
             any_tx = np.zeros(B, dtype=bool)
             any_tx[g_rows] = True
         else:
-            res, table = fetch_host(*devout)  # one device->host transfer
+            with span("engine.fetch"):
+                res, table = fetch_host(*devout)  # one device->host copy
             valid = table.valid
             pos = table.pos
             B = valid.shape[0]
@@ -543,46 +550,54 @@ class CombinedEngine(AlignerEngine):
                 cref.seq, self.s_tensor, self.s_comp, cfg, om,
                 lens[grows].astype(np.int64), out_strand[grows],
                 res.diag[grows])
-            for k, b in enumerate(grows):
-                p, cigar, total_nm = tbs[k]
-                out_pos[b] = p
-                out_cigars[b] = cigar
-                out_nm[b] = total_nm
-                out_tc[b] = tc_count_from_cigar(cref.seq, p,
-                                                om[k, : int(lens[b])],
-                                                int(out_strand[b]), cigar)
+            with span("engine.rows"):
+                for k, b in enumerate(grows):
+                    p, cigar, total_nm = tbs[k]
+                    out_pos[b] = p
+                    out_cigars[b] = cigar
+                    out_nm[b] = total_nm
+                    out_tc[b] = tc_count_from_cigar(
+                        cref.seq, p, om[k, : int(lens[b])],
+                        int(out_strand[b]), cigar)
 
         # junction winners the device finalized (projected step): the
         # record is final except its N CIGAR — one window gather from the
         # spliced->genomic table and a diff per winner
         if n_jun:
-            rows_j = pj.row[:n_jun].astype(np.int64)
-            q0_j = pj.q0[:n_jun].astype(np.int64)
-            lens_j = lens[rows_j]
-            w_idx = np.minimum(q0_j[:, None]
-                               + np.arange(int(lens_j.max()))[None, :],
-                               self._h_gpos.shape[0] - 1)
-            gw = self._h_gpos[w_idx]
-            for w_i in range(n_jun):
-                b = int(rows_j[w_i])
-                out_cigars[b] = _junction_cigar(gw[w_i, : int(lens_j[w_i])])
-                out_ug[b] = False
+            with span("engine.junction_cigars"):
+                rows_j = pj.row[:n_jun].astype(np.int64)
+                q0_j = pj.q0[:n_jun].astype(np.int64)
+                lens_j = lens[rows_j]
+                w_idx = np.minimum(q0_j[:, None]
+                                   + np.arange(int(lens_j.max()))[None, :],
+                                   self._h_gpos.shape[0] - 1)
+                gw = self._h_gpos[w_idx]
+                for w_i in range(n_jun):
+                    b = int(rows_j[w_i])
+                    out_cigars[b] = _junction_cigar(
+                        gw[w_i, : int(lens_j[w_i])])
+                    out_ug[b] = False
 
         xa = None
         if self.xa_tags:
             # fast rows: genome-space candidates only -> the plain engine's
             # XA machinery applies verbatim against the genome reference
-            xa = self._xa_strings(batch, table, out_mapped, out_strand,
-                                  out_pos, out_score, rows=np.nonzero(fm)[0])
+            with span("engine.xa"):
+                xa = self._xa_strings(batch, table, out_mapped, out_strand,
+                                      out_pos, out_score,
+                                      rows=np.nonzero(fm)[0])
 
         tx_rows = np.nonzero(any_tx & (lens > 0))[0]
+        count("engine.slow_path_rows", tx_rows.shape[0])
         if tx_rows.shape[0]:
             keep_e = lens[g_rows] > 0
-            self._slow_path(batch, tx_rows, g_rows[keep_e], e_st[keep_e],
-                            e_pos[keep_e], e_score[keep_e], e_ug[keep_e],
-                            e_diag[keep_e], out_mapped, out_strand,
-                            out_pos, out_score, out_mapq, out_x0, out_x1,
-                            out_nm, out_ug, out_tc, out_cigars, xa=xa)
+            with span("engine.slow_path"):
+                self._slow_path(batch, tx_rows, g_rows[keep_e],
+                                e_st[keep_e], e_pos[keep_e], e_score[keep_e],
+                                e_ug[keep_e], e_diag[keep_e], out_mapped,
+                                out_strand, out_pos, out_score, out_mapq,
+                                out_x0, out_x1, out_nm, out_ug, out_tc,
+                                out_cigars, xa=xa)
 
         return HostAlignments(mapped=out_mapped, strand=out_strand,
                               pos=out_pos, score=out_score, mapq=out_mapq,

@@ -49,7 +49,7 @@ import numpy as np
 from parasuite_tpu_torch.config import AlignConfig
 from parasuite_tpu_torch.io.fastq import iter_fastq_batches
 from parasuite_tpu_torch.io.sam import sam_header
-from parasuite_tpu_torch.utils.runlog import NULL_LOG
+from parasuite_tpu_torch.utils.runlog import NULL_LOG, bind, count, span
 
 
 def _cfg_hash(cfg: AlignConfig) -> str:
@@ -213,6 +213,16 @@ def streaming_align(engine, fastq, out_sam, *, resume: bool = False,
     stalls the main thread at depth — one knob, one window. stats_out (if a
     dict) receives high-water marks {"pending_high", "q_in_high",
     "q_out_high"} so tests can assert the window exists as documented.
+
+    A log that records (utils/runlog.py, record=True) gets each thread's
+    spans a batch: reader.parse and reader.wait (the put into the full
+    input queue); main.wait_reads, step.dispatch and engine.to_host (with
+    the engine's own spans inside them) and main.wait_writer, and once a
+    call main.wait_drain (the writer's backlog at the end, under the last
+    batch's index); writer.wait,
+    writer.emit and writer.commit; and the counters reads and
+    writer.sam_bytes. The align.batch event is built only for a log that
+    writes somewhere (`live`; a log without the attribute counts as live).
     """
     from parasuite_tpu_torch.errormodel.infer import (
         count_indels_from_cigar, count_substitutions_from_cigar)
@@ -250,6 +260,10 @@ def streaming_align(engine, fastq, out_sam, *, resume: bool = False,
     # truncate-on-resume contract carries over unchanged.
     bam_out = str(out_sam).endswith(".bam")
     mode = "r+b" if state else "wb"
+    recording = getattr(log, "recording", False)
+    live = getattr(log, "live", True)
+    if recording:
+        log.begin_call()
     with open(out_sam, mode) as fh:
 
         class _FhWriter:
@@ -298,13 +312,24 @@ def streaming_align(engine, fastq, out_sam, *, resume: bool = False,
 
         def reader():
             try:
-                for b in iter_fastq_batches(
+                with bind(log, "reader"):
+                    batches = iter_fastq_batches(
                         fastq, cfg.batch_size, cfg.max_read_len,
-                        stride_shards=stride_shards, shard_index=shard_index):
-                    q_in.put(b)
-                    hw["q_in_high"] = max(hw["q_in_high"], q_in.qsize())
-                    if errors:
-                        return
+                        stride_shards=stride_shards, shard_index=shard_index)
+                    k = 0
+                    while True:
+                        k += 1
+                        with span("reader.parse", batch=k) as sp:
+                            b = next(batches, None)
+                            if b is None:
+                                sp.drop()
+                                return
+                            count("reads", b.n_real)
+                        with span("reader.wait", batch=k):
+                            q_in.put(b)
+                        hw["q_in_high"] = max(hw["q_in_high"], q_in.qsize())
+                        if errors:
+                            return
             except BaseException as e:  # propagate to main
                 errors.append(e)
             finally:
@@ -312,26 +337,40 @@ def streaming_align(engine, fastq, out_sam, *, resume: bool = False,
 
         def writer_loop():
             try:
-                while True:
-                    item = q_out.get()
-                    if item is None:
-                        return
-                    batch, host, idx, snap = item
-                    emit(batch, host, writer)
-                    writer.flush()  # BAM: cut a BGZF block at the boundary
-                    fh.flush()
-                    wstate["n_records"] += batch.n_real
-                    batch_records.append(batch.n_real)
-                    if (idx - start_batch) % checkpoint_every == 0:
-                        ckpt.save(idx, wstate["n_records"],
-                                  profiled=snap["profiled"],
-                                  counts=snap["counts"],
-                                  indels=snap["indels"],
-                                  sam_bytes=fh.tell(),
-                                  batch_records=batch_records)
-                    log.event("align.batch", batch=idx, reads=batch.n_real,
-                              mapped=int(host.mapped[:batch.n_real].sum()),
-                              records=wstate["n_records"])
+                with bind(log, "writer"):
+                    written = fh.tell() if recording else 0
+                    idx = start_batch
+                    while True:
+                        with span("writer.wait", batch=idx + 1) as sp:
+                            item = q_out.get()
+                            if item is None:
+                                sp.drop()
+                                return
+                        batch, host, idx, snap = item
+                        with span("writer.emit", batch=idx):
+                            emit(batch, host, writer)
+                        with span("writer.commit", batch=idx):
+                            # BAM: cut a BGZF block at the boundary
+                            writer.flush()
+                            fh.flush()
+                            wstate["n_records"] += batch.n_real
+                            batch_records.append(batch.n_real)
+                            if (idx - start_batch) % checkpoint_every == 0:
+                                ckpt.save(idx, wstate["n_records"],
+                                          profiled=snap["profiled"],
+                                          counts=snap["counts"],
+                                          indels=snap["indels"],
+                                          sam_bytes=fh.tell(),
+                                          batch_records=batch_records)
+                            if live:
+                                log.event("align.batch", batch=idx,
+                                          reads=batch.n_real,
+                                          mapped=int(host.mapped[
+                                              :batch.n_real].sum()),
+                                          records=wstate["n_records"])
+                            if recording:
+                                written, before = fh.tell(), written
+                                count("writer.sam_bytes", written - before)
             except BaseException as e:
                 errors.append(e)
                 while True:  # drain so main never blocks on a full queue
@@ -349,7 +388,8 @@ def streaming_align(engine, fastq, out_sam, *, resume: bool = False,
             batch, res, c, idx = pend
             if with_profile_counts and not counts_from_host:
                 counts += c.cpu().numpy().astype(np.int64)
-            host = engine.to_host(batch, res)
+            with span("engine.to_host", batch=idx):
+                host = engine.to_host(batch, res)
             if with_profile_counts and counts_from_host:
                 # combined mode: counts come from the EMITTED records (the
                 # host re-finalization can re-decide the device winner) —
@@ -402,7 +442,8 @@ def streaming_align(engine, fastq, out_sam, *, resume: bool = False,
                     "counts": counts.copy() if with_profile_counts else None,
                     "indels": ((ins.copy(), dels.copy(), n_gapped)
                                if with_profile_counts else None)}
-            q_out.put((batch, host, idx, snap))
+            with span("main.wait_writer", batch=idx):
+                q_out.put((batch, host, idx, snap))
             hw["q_out_high"] = max(hw["q_out_high"], q_out.qsize())
 
         t_read = threading.Thread(target=reader, daemon=True)
@@ -416,36 +457,44 @@ def streaming_align(engine, fastq, out_sam, *, resume: bool = False,
         from collections import deque
         pending: deque = deque()
         saw_eof = False
-        while not errors:
-            batch = q_in.get()
-            if batch is None:
-                saw_eof = True
-                break
-            if batch_idx < start_batch:  # already committed before restart
+        with bind(log, "main"):
+            while not errors:
+                with span("main.wait_reads", batch=batch_idx + 1) as sp:
+                    batch = q_in.get()
+                    if batch is None:
+                        sp.drop()
+                if batch is None:
+                    saw_eof = True
+                    break
+                if batch_idx < start_batch:  # committed before restart
+                    batch_idx += 1
+                    continue
+                with span("step.dispatch", batch=batch_idx + 1):
+                    if getattr(engine, "supports_packed", False):
+                        # wire-packed step; profile counts fused into the
+                        # same call (unless the engine counts from emitted
+                        # records host-side)
+                        want_c = with_profile_counts and not counts_from_host
+                        out = engine.align_device_packed(
+                            batch.codes, batch.lengths, with_counts=want_c)
+                        res, c = out if want_c else (out, None)
+                    else:
+                        res = engine.align_device(batch.codes, batch.lengths)
+                        c = (engine.profile_counts_device(
+                            batch.codes, batch.lengths, res)
+                             if with_profile_counts and not counts_from_host
+                             else None)
                 batch_idx += 1
-                continue
-            if getattr(engine, "supports_packed", False):
-                # wire-packed step; profile counts fused into the same call
-                # (unless the engine counts from emitted records host-side)
-                want_c = with_profile_counts and not counts_from_host
-                out = engine.align_device_packed(
-                    batch.codes, batch.lengths, with_counts=want_c)
-                res, c = out if want_c else (out, None)
-            else:
-                res = engine.align_device(batch.codes, batch.lengths)
-                c = (engine.profile_counts_device(batch.codes, batch.lengths,
-                                                  res)
-                     if with_profile_counts and not counts_from_host
-                     else None)
-            batch_idx += 1
-            pending.append((batch, res, c, batch_idx))
-            hw["pending_high"] = max(hw["pending_high"], len(pending))
-            if len(pending) >= depth:
+                pending.append((batch, res, c, batch_idx))
+                hw["pending_high"] = max(hw["pending_high"], len(pending))
+                if len(pending) >= depth:
+                    drain(pending.popleft())
+            while pending and not errors:
                 drain(pending.popleft())
-        while pending and not errors:
-            drain(pending.popleft())
-        q_out.put(None)
-        t_write.join()
+            # the end of the call: the writer finishes its backlog
+            with span("main.wait_drain", batch=batch_idx):
+                q_out.put(None)
+                t_write.join()
         while not saw_eof:  # unblock the reader if it is mid-put (error path)
             saw_eof = q_in.get() is None
         t_read.join()

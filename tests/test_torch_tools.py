@@ -250,10 +250,10 @@ def test_rescue_accuracy_equals_jax_engine(j_base):
 @pytest.mark.parametrize("mode", ["plain", "xa", "rescue"])
 def test_profile_e2e_times_without_changing_the_output(mode, j_base,
                                                        tmp_path):
-    """4,096 reads through streaming_align under the probe: every record
-    there, every named timer present and non-negative, the self times of
-    one thread within the wall, the bytes counted, every patch undone, and
-    the SAM byte-identical to an unpatched run."""
+    """4,096 reads through streaming_align with its spans recorded: every
+    record there, every named span present and non-negative, the self
+    times of one thread within the wall, the bytes counted, nothing of the
+    program patched, and the SAM byte-identical to an unrecorded run."""
     import parasuite_tpu_torch.pipeline.align as palign
     import parasuite_tpu_torch.pipeline.stream as pstream
     from parasuite_tpu_torch.io.fastq import write_fastq
@@ -279,29 +279,32 @@ def test_profile_e2e_times_without_changing_the_output(mode, j_base,
                       palign.tc_count_from_cigar)
     assert "to_host" not in vars(engine) and "_upload" not in vars(engine)
     assert rec["reads"] == n and rec["batches"] == n // BATCH
-    assert rec["device_step_ms"] is None and rec["device_busy_share"] is None
+    assert rec["device_busy_ms"] is None and rec["device_busy_share"] is None
     timers = rec["timers"]
-    named = {"reader.next_batch", "main.dispatch", "main.to_host",
-             "main.to_host.fetch_host", "main.to_host.orient_rows",
-             "main.to_host.host_tracebacks_batch",
-             "main.to_host.tc_count_from_cigar", "main.profile_counts",
-             "writer.emit", "writer.emit.native", "writer.emit.python"}
+    named = {"reader.parse", "reader.wait", "main.wait_reads",
+             "step.dispatch", "step.pack", "step.upload", "step.replay",
+             "engine.to_host", "engine.fetch", "engine.tracebacks",
+             "engine.tracebacks.dp", "engine.tracebacks.walk",
+             "engine.rows", "main.wait_writer", "writer.wait",
+             "writer.emit", "writer.commit"}
     if mode == "xa":
-        named |= {"main.to_host.xa_strings",
-                  "main.to_host.xa_strings.host_traceback"}
+        named |= {"engine.xa"}
+        named -= {"step.pack"}                  # the unpacked step
     if mode == "rescue":
-        named |= {"main.to_host.rescue_dispatch",
-                  "main.to_host.rescue_finish"}
+        named |= {"engine.rescue"}
     assert named <= set(timers)
     for name, t in timers.items():
         assert t["seconds"] >= t["self_seconds"] >= 0, name
-    for thread in ("reader.", "main.", "writer."):
+    threads = {"reader.": "reader", "main.": "main", "step.": "main",
+               "engine.": "main", "writer.": "writer"}
+    for thread in ("reader", "main", "writer"):
         own = sum(t["self_seconds"] for k, t in timers.items()
-                  if k.startswith(thread))
+                  if threads[k.split(".")[0] + "."] == thread)
         assert 0 < own <= rec["wall_seconds"], thread
-    assert timers["main.to_host.host_tracebacks_batch"]["calls"] >= 1
-    assert timers["main.to_host.tc_count_from_cigar"]["calls"] >= 1
-    assert timers["writer.emit.native"]["calls"] >= n // BATCH
+    assert timers["engine.tracebacks"]["calls"] >= 1
+    assert timers["engine.rows"]["calls"] >= 1
+    assert timers["writer.emit"]["calls"] == n // BATCH
+    assert rec["counters"]["reads"] == n
     # what one batch moves. The wire step (plain, rescue): 2-bit codes,
     # N mask and uint16 lengths up (13 + 7 + 2 B/read at L = 50), the
     # 13 B/read PackedResult down, more with a rescue step. With XA the
@@ -317,6 +320,7 @@ def test_profile_e2e_times_without_changing_the_output(mode, j_base,
     if mode == "plain":
         assert rec["bytes_up_per_batch"] == BATCH * (13 + 7 + 2)
         assert rec["bytes_down_per_batch"] == BATCH * 13
+        assert rec["uploads"] == rec["fetches"] == n // BATCH
 
     fresh = AlignerEngine(ref, index, cfg, xa_tags=mode == "xa",
                           device="cpu")

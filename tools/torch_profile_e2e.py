@@ -1,39 +1,47 @@
 """Where FASTQ -> SAM time goes in the port (counterpart of
-tools/profile_e2e.py): accumulating timers around the stage functions of
-pipeline.stream.streaming_align on a real streaming pass.
+tools/profile_e2e.py): the program's own spans and counters
+(parasuite_tpu_torch/utils/runlog.py) of a real streaming pass, recorded
+through a RunLog(record=True).
 
-Per-stage numbers are per-THREAD busy time (the pipeline overlaps its three
+Per-span numbers are per-THREAD busy time (the pipeline overlaps its three
 threads, so the slowest thread bounds throughput, not the sum):
 
-  reader.next_batch            FASTQ -> ReadBatch (iter_fastq_batches)
-  main.dispatch                align_device_packed (the wire step: host
-                               packing, upload, enqueue) or align_device:
-                               CUDA launches are asynchronous, so beyond
-                               the upload this is the enqueue only
-  main.profile_counts          profile_counts_device (profile passes)
-  main.to_host                 fetch + host finishing, split into
-    .fetch_host                the one device -> host copy; it waits for the
-                               device, so it absorbs the step's device time
-    .orient_rows               genome-frame rows of the gapped winners
-    .host_tracebacks_batch     the batched banded DP + traceback walks
-    .tc_count_from_cigar       the per-row T->C count of gapped winners
-    .rescue_dispatch / .rescue_finish   the smaller-k pass (rescue_kmer)
-    .xa_strings (.host_traceback inside it)   XA:Z tags (--xa)
-    .slow_path                 combined mode's numpy re-finalization
-  writer.emit                  emit_sam / emit_bam, split into
-    .native                    the C++ batch formatter
-    .python                    the per-record Python formatter
+  reader.parse / reader.wait    FASTQ -> ReadBatch; the put into the full
+                                input queue
+  main.wait_reads               the main thread waiting for a batch
+  step.dispatch                 the engine's step: host packing, upload,
+    .pack / .upload / .replay   enqueue (CUDA launches are asynchronous)
+  step.capture                  a new key's warm-up and graph capture
+  engine.to_host                fetch + host finishing, split into
+    engine.fetch                the device -> host copies; they wait for
+                                the device, so they absorb its time
+    engine.tracebacks           the batched gapped DP (.dp) and the
+                                per-read walks (.walk)
+    engine.rows                 the per-row T->C count of gapped winners
+    engine.rescue / engine.xa   the smaller-k pass; XA:Z tags (--xa)
+    engine.junction_cigars      combined mode's junction winners' CIGARs
+    engine.slow_path            combined mode's numpy re-finalization
+  main.wait_writer              the put into the writer's full queue
+  writer.wait / writer.emit / writer.commit   the writer waiting, SAM
+                                formatting and writes, flush + checkpoint
 
-Each timer has `seconds` (inclusive) and `self_seconds` (its own time
-without the timers nested in it on the same thread), so the self times of
-one thread sum to no more than the wall.
+Each span has `seconds` (inclusive) and `self_seconds` (without the spans
+directly inside it), so the self times of one thread sum to no more than
+the wall. `counters` are the runs' totals (reads, step.bytes_up,
+engine.bytes_down, engine.gapped_rows, ...); `bytes_up_per_batch` /
+`bytes_down_per_batch` are what the uploads and fetches moved (on the wire
+step at L = 50: 22 and 13 bytes a read).
 
-The device: every dispatched step (rescue steps too) sits between two CUDA
-events; `device_step_ms` is their sum and `device_busy_share` that sum over
-the wall — an upper bound of the busy share, since a launch gap inside a
-step counts as busy. `bytes_up_per_batch` / `bytes_down_per_batch` are what
-_upload and fetch_host moved (on the wire step at L = 50: 22 and 13 bytes a
-read).
+On a card every round runs under torch.profiler. `device_busy_ms` is the
+union of the card's kernel, copy and set intervals over the round and
+`device_busy_share` that over the wall; `idle_main_work_share` is the
+share of the card's idle time in which the main thread was inside a span
+other than its waits (main.wait_reads, main.wait_writer, main.wait_drain).
+The main thread's spans are record_function ranges in the profiler's own
+trace, on the card's clock (`main_ranges`, against `main_spans`). The
+median of their starts less their perf_counter_ns stamps is the offset
+that maps the other threads' spans onto that clock (`idle_work_share` of
+each thread), and `clock_offset_mad_us` its error.
 
     python tools/torch_profile_e2e.py [n_reads] [--device cuda|cpu]
         [--xa] [--combined] [--index PREFIX --fastq FILE] [--batch-size N]
@@ -47,9 +55,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import statistics
 import sys
 import tempfile
-import threading
 import time
 from pathlib import Path
 
@@ -59,230 +68,175 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import _torch_bench as tb
 
-
-class Acc:
-    """Accumulating timers with per-thread nesting: `seconds` inclusive,
-    `self_seconds` without the timers entered inside on the same thread."""
-
-    def __init__(self):
-        self.seconds: dict = {}
-        self.self_seconds: dict = {}
-        self.calls: dict = {}
-        self._local = threading.local()
-
-    def reset(self) -> None:
-        for d in (self.seconds, self.self_seconds, self.calls):
-            for k in d:
-                d[k] = 0
-
-    def declare(self, name: str) -> None:
-        self.seconds.setdefault(name, 0.0)
-        self.self_seconds.setdefault(name, 0.0)
-        self.calls.setdefault(name, 0)
-
-    def add(self, name: str, dt: float, child: float = 0.0) -> None:
-        self.seconds[name] += dt
-        self.self_seconds[name] += dt - child
-        self.calls[name] += 1
-
-    def wrap(self, name: str, fn):
-        self.declare(name)
-
-        def inner(*a, **kw):
-            stack = self._local.__dict__.setdefault("stack", [])
-            stack.append(0.0)
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                dt = time.perf_counter() - t0
-                child = stack.pop()
-                if stack:
-                    stack[-1] += dt
-                self.add(name, dt, child)
-
-        return inner
-
-    def report(self) -> dict:
-        return {k: {"seconds": round(self.seconds[k], 6),
-                    "self_seconds": round(self.self_seconds[k], 6),
-                    "calls": self.calls[k]} for k in sorted(self.seconds)}
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+WAITS = ("main.wait_reads", "main.wait_writer", "main.wait_drain")
 
 
-# module-level functions of pipeline/align.py that to_host (and, imported by
-# name, pipeline/combined.py) calls -> timer name
-_HOST_FUNCS = {"fetch_host": "main.to_host.fetch_host",
-               "orient_rows": "main.to_host.orient_rows",
-               "host_tracebacks_batch": "main.to_host.host_tracebacks_batch",
-               "tc_count_from_cigar": "main.to_host.tc_count_from_cigar",
-               "host_traceback": "main.to_host.xa_strings.host_traceback"}
-# engine methods -> timer name (bound on the instance, so `self.x` finds the
-# timed one)
-_ENGINE_FUNCS = {"to_host": "main.to_host",
-                 "profile_counts_device": "main.profile_counts",
-                 "_xa_strings": "main.to_host.xa_strings",
-                 "_slow_path": "main.to_host.slow_path",
-                 "_finish_rescue": "main.to_host.rescue_finish",
-                 "emit_sam": "writer.emit", "emit_bam": "writer.emit",
-                 "_format_native_run": "writer.emit.native",
-                 "_format_one": "writer.emit.python"}
+def union(intervals) -> list:
+    """Sorted, merged [a, b] intervals."""
+    out: list = []
+    for a, b in sorted(intervals):
+        if b <= a:
+            continue
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
 
 
-class Probe:
-    """Patches one engine and the stream / align / combined modules with
-    timers, CUDA events and byte counters; restore() puts everything back."""
+def overlap(xs: list, ys: list) -> float:
+    """Total length of the intersection of two merged interval lists."""
+    i = j = 0
+    tot = 0.0
+    while i < len(xs) and j < len(ys):
+        a, b = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+        tot += max(0.0, b - a)
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return tot
 
-    def __init__(self, engine):
-        import parasuite_tpu_torch.pipeline.align as palign
-        import parasuite_tpu_torch.pipeline.combined as pcombined
-        import parasuite_tpu_torch.pipeline.stream as pstream
 
-        self.engine = engine
-        self.acc = Acc()
-        self.events: list = []
-        self.bytes_up = self.bytes_down = 0
-        self.n_uploads = self.n_fetches = 0
-        self._undo: list = []
-        cuda = engine.device.type == "cuda"
-        acc = self.acc
+def device_split(events: list, spans: list, t0_ns: int, t1_ns: int) -> dict:
+    """torch.profiler's trace events of one streaming call and the call's
+    spans -> the card's busy time over the call ([t0_ns, t1_ns] on
+    perf_counter_ns), and the share of its idle time in which each thread
+    worked (was inside a span other than a wait).
 
-        def patch(obj, attr, new):
-            had = attr in vars(obj)
-            old = getattr(obj, attr)
-            setattr(obj, attr, new)
-            self._undo.append((obj, attr, old, had))
+    The main thread's spans appear in the trace as record_function ranges
+    of the same names (the thread that started the profiler is the one it
+    records); `idle_main_work_share` reads those ranges, on the trace's own
+    clock. The median of (range start - span start) over them is the offset
+    from perf_counter_ns to that clock, and `idle_work_share` maps every
+    thread's spans through it (main's from its spans agrees with the
+    ranges' to within the offset's error: `clock_offset_mad_us`, the
+    median distance of a range's offset from the median)."""
+    main = [s for s in spans if s.thread == "main"]
+    names = {s.name for s in main}
+    ranges = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") == "user_annotation"]
+    tids = [e["tid"] for e in ranges if e["name"] == "step.dispatch"]
+    main_tid = max(set(tids), key=tids.count) if tids else None
+    by_name: dict = {}
+    for e in ranges:
+        if e["tid"] == main_tid:
+            by_name.setdefault(e["name"], []).append(e["ts"])
+    offs = []          # names whose spans and ranges pair one to one
+    for name in names:
+        mine = sorted(s.t0 for s in main if s.name == name)
+        rs = sorted(by_name.get(name, []))
+        if len(rs) == len(mine):
+            offs += [r - t / 1e3 for r, t in zip(rs, mine)]
+    out = {"main_spans": len(main),
+           "main_ranges": sum(min(len(by_name.get(n, [])),
+                                  sum(s.name == n for s in main))
+                              for n in names),
+           "other_thread_ranges": sum(e["tid"] != main_tid for e in ranges
+                                      if e["name"] in {s.name for s in spans}),
+           "clock_offset_mad_us": None, "device_busy_ms": None,
+           "idle_main_work_share": None, "idle_work_share": None}
+    if not offs:
+        return out
+    off = statistics.median(offs)
+    out["clock_offset_mad_us"] = statistics.median(abs(o - off)
+                                                   for o in offs)
+    lo, hi = t0_ns / 1e3 + off, t1_ns / 1e3 + off
+    busy = union((max(e["ts"], lo), min(e["ts"] + e["dur"], hi))
+                 for e in events if e.get("ph") == "X"
+                 and e.get("cat") in DEVICE_CATS)
+    edges = [lo] + [x for ab in busy for x in ab] + [hi]
+    idle = [[edges[i], edges[i + 1]] for i in range(0, len(edges), 2)
+            if edges[i + 1] > edges[i]]
+    idle_us = sum(b - a for a, b in idle)
+    out["device_busy_ms"] = sum(b - a for a, b in busy) / 1e3
+    if not idle_us:
+        return out
+    work = union((e["ts"], e["ts"] + e["dur"]) for e in ranges
+                 if e["tid"] == main_tid and e["name"] in names
+                 and e["name"] not in WAITS)
+    out["idle_main_work_share"] = overlap(idle, work) / idle_us
+    out["idle_work_share"] = {
+        th: overlap(idle, union((s.t0 / 1e3 + off, s.t1 / 1e3 + off)
+                                for s in spans if s.thread == th
+                                and not s.name.endswith("wait")
+                                and s.name not in WAITS)) / idle_us
+        for th in ("reader", "main", "writer")}
+    return out
 
-        # reader thread: pipeline/stream.py binds iter_fastq_batches by name
-        fq_iter = pstream.iter_fastq_batches
-        acc.declare("reader.next_batch")
 
-        def timed_iter(*a, **kw):
-            it = fq_iter(*a, **kw)
-            while True:
-                t0 = time.perf_counter()
-                try:
-                    b = next(it)
-                except StopIteration:
-                    return
-                acc.add("reader.next_batch", time.perf_counter() - t0)
-                yield b
+def profiled(device):
+    """A torch.profiler session over the CPU and the card, or None on the
+    CPU."""
+    if str(device).split(":")[0] != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
 
-        patch(pstream, "iter_fastq_batches", timed_iter)
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
-        # main thread: each dispatched step between two CUDA events
-        def evented(fn):
-            import torch
 
-            def inner(*a, **kw):
-                if not cuda:
-                    return fn(*a, **kw)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = fn(*a, **kw)
-                end.record()
-                self.events.append((start, end))
-                return out
-
-            return inner
-
-        step = ("align_device_packed" if engine.supports_packed
-                else "align_device")
-        patch(engine, step, acc.wrap("main.dispatch",
-                                     evented(getattr(engine, step))))
-        if getattr(engine, "_rescue", None) is not None:
-            patch(engine, "_dispatch_rescue",
-                  acc.wrap("main.to_host.rescue_dispatch",
-                           evented(engine._dispatch_rescue)))
-        for attr, name in _ENGINE_FUNCS.items():
-            if hasattr(engine, attr):
-                patch(engine, attr, acc.wrap(name, getattr(engine, attr)))
-
-        upload = engine._upload
-
-        def counted_upload(*arrays):
-            out = upload(*arrays)
-            self.bytes_up += sum(x.numel() * x.element_size() for x in out)
-            self.n_uploads += 1
-            return out
-
-        patch(engine, "_upload", counted_upload)
-
-        fetch = palign.fetch_host
-
-        def counted_fetch(*parts):
-            self.bytes_down += sum(x.numel() * x.element_size()
-                                   for p in parts if p is not None
-                                   for x in p)
-            self.n_fetches += 1
-            return fetch(*parts)
-
-        timed = {attr: acc.wrap(name, counted_fetch if attr == "fetch_host"
-                                else getattr(palign, attr))
-                 for attr, name in _HOST_FUNCS.items()}
-        for mod in (palign, pcombined):
-            for attr, fn in timed.items():
-                if hasattr(mod, attr):
-                    patch(mod, attr, fn)
-
-    def restore(self) -> None:
-        for obj, attr, old, had in reversed(self._undo):
-            if had:
-                setattr(obj, attr, old)
-            else:
-                delattr(obj, attr)
-        self._undo.clear()
-
-    def reset(self) -> None:
-        self.acc.reset()
-        self.events.clear()
-        self.bytes_up = self.bytes_down = 0
-        self.n_uploads = self.n_fetches = 0
-
-    def device_step_ms(self) -> float | None:
-        """Sum of the CUDA-event times of every dispatched step (None on the
-        CPU)."""
-        if self.engine.device.type != "cuda":
-            return None
-        tb.sync(self.engine.device)
-        return float(sum(s.elapsed_time(e) for s, e in self.events))
+def trace_events(prof) -> list:
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            return json.load(fh)["traceEvents"]
+    finally:
+        os.unlink(path)
 
 
 def profile_stream(engine, fastq, out_sam, rounds: int = 2, **stream_kw):
-    """streaming_align(engine, fastq, out_sam) under the probe, `rounds`
-    times (the first warms up; the fastest is reported) -> the record."""
+    """streaming_align(engine, fastq, out_sam) with its spans recorded,
+    `rounds` times (the first warms up; the fastest is reported) -> the
+    record."""
     from parasuite_tpu_torch.pipeline.stream import streaming_align
+    from parasuite_tpu_torch.utils.runlog import RunLog
 
-    probe = Probe(engine)
     best = None
-    try:
-        for _ in range(rounds):
-            probe.reset()
-            for suffix in ("", ".progress.json"):
-                Path(str(out_sam) + suffix).unlink(missing_ok=True)
-            tb.sync(engine.device)
-            t0 = time.perf_counter()
-            n_rec, _c, _p = streaming_align(engine, fastq, out_sam,
-                                            **stream_kw)
-            tb.sync(engine.device)
-            wall = time.perf_counter() - t0
-            if best is None or wall < best["wall_seconds"]:
-                step_ms = probe.device_step_ms()
-                n_b = max(probe.acc.calls["main.dispatch"], 1)
-                best = {
-                    "reads": n_rec, "batches": n_b,
-                    "wall_seconds": wall,
-                    "reads_per_s": n_rec / wall,
-                    "timers": probe.acc.report(),
-                    "device_step_ms": step_ms,
-                    "device_busy_share": (None if step_ms is None
-                                          else step_ms / 1e3 / wall),
-                    "bytes_up_per_batch": probe.bytes_up / n_b,
-                    "bytes_down_per_batch": probe.bytes_down / n_b,
-                    "uploads": probe.n_uploads, "fetches": probe.n_fetches,
-                }
-    finally:
-        probe.restore()
+    for _ in range(rounds):
+        for suffix in ("", ".progress.json"):
+            Path(str(out_sam) + suffix).unlink(missing_ok=True)
+        log = RunLog(record=True)
+        prof = profiled(engine.device)
+        tb.sync(engine.device)
+        if prof is not None:
+            prof.start()
+        t0 = time.perf_counter_ns()
+        n_rec, _c, _p = streaming_align(engine, fastq, out_sam, log=log,
+                                        **stream_kw)
+        tb.sync(engine.device)
+        t1 = time.perf_counter_ns()
+        if prof is not None:
+            prof.stop()
+        wall = (t1 - t0) / 1e9
+        if best is None or wall < best["wall_seconds"]:
+            summ = log.summary()
+            spans, counters = summ["spans"], summ["counters"]
+            n_b = max(spans.get("step.dispatch", {}).get("calls", 0), 1)
+            dev = (device_split(trace_events(prof), log.spans, t0, t1)
+                   if prof is not None else {})
+            busy = dev.get("device_busy_ms")
+            best = {
+                "reads": n_rec, "batches": n_b,
+                "wall_seconds": wall,
+                "reads_per_s": n_rec / wall,
+                "timers": {k: {"seconds": round(t["seconds"], 6),
+                               "self_seconds": round(t["self_seconds"], 6),
+                               "calls": t["calls"]}
+                           for k, t in sorted(spans.items())},
+                "counters": counters,
+                "device_busy_ms": busy,
+                "device_busy_share": (None if busy is None
+                                      else busy / 1e3 / wall),
+                **{k: v for k, v in dev.items() if k != "device_busy_ms"},
+                "bytes_up_per_batch": counters.get("step.bytes_up", 0) / n_b,
+                "bytes_down_per_batch": (counters.get("engine.bytes_down", 0)
+                                         / n_b),
+                "uploads": spans.get("step.upload", {}).get("calls", 0),
+                "fetches": spans.get("engine.fetch", {}).get("calls", 0),
+            }
     return best
 
 
