@@ -5,7 +5,9 @@ contract).
 Usage: call available() to check (attempts a lazy `make` the first time);
 kmer_index_build() and fastq_scan_file() raise if the library is missing —
 callers (index.kmer.KmerIndex.build, io.fastq) fall back to numpy paths that
-produce bit-identical output.
+produce bit-identical output. So does tracebacks_batch (ABI 6), whose
+fallback is pipeline/align.py::host_tracebacks_batch's numpy DP and Python
+walk.
 
 The first build is safe when several processes start at once (`dist-align
 --coordinator` starts N): each builds under a name of its own and renames
@@ -25,7 +27,7 @@ import numpy as np
 
 _DIR = Path(__file__).resolve().parent
 _LIB_PATH = _DIR / "libparasuite_native.so"
-_ABI = 5
+_ABI = 6
 _lib = None
 _tried = False
 
@@ -307,6 +309,58 @@ def bam_format_batch(ref_seq: np.ndarray, codes: np.ndarray,
     if w < 0:
         raise RuntimeError("ps_bam_format_batch failed (buffer/input)")
     return ctypes.string_at(out, w)
+
+
+def tracebacks_batch(s_tensor: np.ndarray, s_comp: np.ndarray,
+                     oriented: np.ndarray, lens: np.ndarray,
+                     strands: np.ndarray, diags: np.ndarray,
+                     ref_seq: np.ndarray, w: int, gap_open: int,
+                     gap_extend: int):
+    """The gapped rows' score rows, reference windows, banded DP, traceback
+    walk and NM in one C call, the GIL released (ps_tracebacks_batch;
+    pipeline/align.py::host_tracebacks_batch reads the runs).
+
+    s_tensor, s_comp [ls, 5, 5] (S[cycle, ref base, read base]); oriented
+    int8 [G, lo] genome-frame reads; lens, strands, diags [G].
+    -> (pos int64 [G], nm int32 [G], n_runs int32 [G], run_ops uint8,
+        run_lens int32): row g's runs (0 M, 1 I, 2 D) follow row g - 1's;
+    n_runs is -1 on a row the C path leaves to numpy."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    if not hasattr(lib.ps_tracebacks_batch, "_configured"):
+        lib.ps_tracebacks_batch.restype = ctypes.c_int64
+        lib.ps_tracebacks_batch.argtypes = \
+            [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+             ctypes.c_int64] + [ctypes.c_void_p] * 4 + \
+            [ctypes.c_int64] * 6 + [ctypes.c_void_p] * 5
+        lib.ps_tracebacks_batch._configured = True
+    scores = np.ascontiguousarray(np.stack([s_tensor, s_comp]),
+                                  dtype=np.int64)
+    G, lo = oriented.shape
+    if scores.shape[2:] != (5, 5) or not (lens.shape == strands.shape ==
+                                          diags.shape == (G,)):
+        raise ValueError("tracebacks_batch: inconsistent shapes")
+    oriented = np.ascontiguousarray(oriented, dtype=np.int8)
+    lens, strands, diags = (np.ascontiguousarray(a, dtype=np.int64)
+                            for a in (lens, strands, diags))
+    ref_seq = np.ascontiguousarray(ref_seq, dtype=np.int8)
+    # a walk has len M or I ops and at most 2w + len - 1 D ops
+    cap = G * 2 * (min(lo, scores.shape[1]) + w)
+    pos = np.empty(G, dtype=np.int64)
+    nm = np.empty(G, dtype=np.int32)
+    n_runs = np.empty(G, dtype=np.int32)
+    run_ops = np.empty(cap, dtype=np.uint8)
+    run_lens = np.empty(cap, dtype=np.int32)
+    done = lib.ps_tracebacks_batch(
+        scores.ctypes.data, scores.shape[1], oriented.ctypes.data, lo,
+        lens.ctypes.data, strands.ctypes.data, diags.ctypes.data,
+        ref_seq.ctypes.data, ref_seq.shape[0], G, w, int(gap_open),
+        int(gap_extend), cap, pos.ctypes.data, nm.ctypes.data,
+        n_runs.ctypes.data, run_ops.ctypes.data, run_lens.ctypes.data)
+    if done < 0:
+        raise RuntimeError("ps_tracebacks_batch failed (arguments)")
+    return pos, nm, n_runs, run_ops, run_lens
 
 
 def bam_sort(in_path, out_path, header_blob: bytes, min_mapq: int = 0,

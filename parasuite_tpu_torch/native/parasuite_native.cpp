@@ -10,9 +10,12 @@
 // ctypes (no pybind11 in this environment); the numpy fallbacks in
 // index/kmer.py and io/fastq.py produce bit-identical outputs (enforced by
 // tests/test_native.py and tests/test_torch_host_copies.py). It differs from
-// the original in one place: ps_bam_sort spills its sorted runs into a
+// the original in two places: ps_bam_sort spills its sorted runs into a
 // directory the caller names (the output's own), through unlinked mkstemp
-// files, and closes every run file when a write fails (ABI 5).
+// files, and closes every run file when a write fails (ABI 5); and
+// ps_tracebacks_batch, the gapped rows' banded DP, traceback walk and NM,
+// whose numpy fallback is pipeline/align.py::host_tracebacks_batch's own
+// DP and walk, bit-identical (tests/test_torch_native_traceback.py; ABI 6).
 //
 // Build: make -C parasuite_tpu_torch/native   ->  libparasuite_native.so
 
@@ -173,7 +176,7 @@ int64_t ps_fastq_scan(const char* buf, int64_t len, int64_t max_reads,
 }
 
 // library version tag for the ctypes wrapper's compatibility check
-int32_t ps_abi_version(void) { return 5; }
+int32_t ps_abi_version(void) { return 6; }
 
 // ---------------------------------------------------------------------------
 // SAM cluster-ingestion scanner (SURVEY.md §3.5; BASELINE config 5 scale).
@@ -1309,6 +1312,208 @@ int64_t ps_bam_sort(const char* in_path, const char* out_path,
     const bool ok = sink.close();
     if (fclose(fout) != 0 || !ok) return -2;
     return n_out;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Gapped host tracebacks — the C++ twin of the numpy DP and Python walk in
+// pipeline/align.py::host_tracebacks_batch (bit-identical, pinned by
+// tests/test_torch_native_traceback.py). For each of G rows:
+//   1. the score rows rows[i][r] = S[strand][prof][r][read[i]] (prof = i,
+//      or len - 1 - i on strand 1; read bases clipped to 0..4) and the
+//      reference window win[t] = ref[diag - w + t], N out of range;
+//   2. the banded glocal affine-gap DP over the band = 2w + 1 diagonals,
+//      int64, with the integer semantics of _banded_dp_batch: the NEG
+//      sentinel, M only where best_prev > NEG / 2, Ix NEG in row 0 and in
+//      the last diagonal, Iy as the prefix max
+//      Iy[j] = max_{u<j} (M[u] + u*ge) - go - (j-1)*ge, NEG at j = 0;
+//   3. the walk back from the first argmax of M[len - 1], with the tie order
+//      of oracle/align.py::traceback_alignment (M > Iy > Ix out of M; a gap
+//      closes into M on >=);
+//   4. the run-length CIGAR, and NM = gap bases + the M segments' positions
+//      where ref != read or either is N.
+// Single-threaded on purpose: the stream's reader and writer need the other
+// cores (ctypes releases the GIL for the call).
+//   scores   int64 [2, ls, 5, 5]  S[strand][cycle][ref base][read base]
+//   oriented int8  [G, lo]        genome-frame reads, lo >= max(lens)
+//   lens, strands, diags int64 [G]
+//   ref      int8  [ref_len]      packed reference codes
+//   out: pos int64 [G] (diag - w + start_j), nm int32 [G], n_runs int32 [G],
+//        run_ops uint8 / run_lens int32 [cap]: each row's runs (0 M, 1 I,
+//        2 D) after the last row's, first op first
+// A row this function cannot finish as numpy would — a strand other than
+// 0 / 1, a length outside 1..min(lo, ls), a reference code outside 0..4, a
+// walk that would leave its tables, an M segment outside [0, ref_len),
+// runs past cap — gets n_runs = -1 and no runs: the caller leaves such a
+// batch to the numpy path, which defines those cases. Returns the rows
+// finished, or -1 on bad arguments.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int64_t kNeg = -(int64_t(1) << 28);   // oracle/align.py NEG
+
+enum : uint8_t { kOpM = 0, kOpI = 1, kOpD = 2 };
+
+// One row's DP and walk over its score rows [len, 5] and window
+// [len + band - 1]. M, X (Ix), Y (Iy): [len, band] scratch; ops gets the
+// walk's ops last to first. False where numpy has to decide.
+bool traceback_row(const int64_t* rows, const int64_t* win, int64_t len,
+                   int64_t band, int64_t go, int64_t ge, int64_t* M,
+                   int64_t* X, int64_t* Y, uint8_t* ops, int64_t cap,
+                   int64_t* n_ops, int64_t* start_j) {
+    for (int64_t i = 0; i < len; ++i) {
+        const int64_t* sr = rows + i * 5;
+        const int64_t* wi = win + i;
+        int64_t* m = M + i * band;
+        int64_t* x = X + i * band;
+        int64_t* y = Y + i * band;
+        for (int64_t j = 0; j < band; ++j) {
+            const int64_t r = wi[j];
+            if (i == 0) {
+                m[j] = sr[r];
+                x[j] = kNeg;
+                continue;
+            }
+            const int64_t* mp = m - band;
+            const int64_t* xp = x - band;
+            const int64_t* yp = y - band;
+            const int64_t bp = std::max(mp[j], std::max(xp[j], yp[j]));
+            m[j] = bp > kNeg / 2 ? sr[r] + bp : kNeg;
+            x[j] = j + 1 < band ? std::max(mp[j + 1] - go, xp[j + 1] - ge)
+                                : kNeg;
+        }
+        y[0] = kNeg;
+        int64_t cm = m[0];
+        for (int64_t j = 1; j < band; ++j) {
+            y[j] = cm - go - (j - 1) * ge;
+            cm = std::max(cm, m[j] + j * ge);
+        }
+    }
+    const int64_t* last = M + (len - 1) * band;
+    int64_t j = 0;
+    for (int64_t k = 1; k < band; ++k)
+        if (last[k] > last[j]) j = k;
+    int64_t i = len - 1, n = 0;
+    uint8_t state = kOpM;
+    for (;;) {
+        if (n >= cap) return false;
+        ops[n++] = state;
+        if (state == kOpM) {
+            if (i == 0) break;
+            const int64_t at = (i - 1) * band + j;
+            const int64_t prev = std::max(M[at], std::max(Y[at], X[at]));
+            state = prev == M[at] ? kOpM : prev == Y[at] ? kOpD : kOpI;
+            --i;
+        } else if (state == kOpI) {
+            if (i == 0 || j + 1 >= band) return false;
+            const int64_t at = (i - 1) * band + j + 1;
+            state = M[at] - go >= X[at] - ge ? kOpM : kOpI;
+            --i;
+            ++j;
+        } else {
+            if (j == 0) return false;
+            const int64_t at = i * band + j - 1;
+            state = M[at] - go >= Y[at] - ge ? kOpM : kOpD;
+            --j;
+        }
+    }
+    *n_ops = n;
+    *start_j = j;
+    return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+int64_t ps_tracebacks_batch(
+    const int64_t* scores, int64_t ls, const int8_t* oriented, int64_t lo,
+    const int64_t* lens, const int64_t* strands, const int64_t* diags,
+    const int8_t* ref, int64_t ref_len, int64_t G, int64_t w,
+    int64_t gap_open, int64_t gap_extend, int64_t cap, int64_t* out_pos,
+    int32_t* out_nm, int32_t* out_n_runs, uint8_t* run_ops,
+    int32_t* run_lens) {
+    if (G < 0 || ls < 1 || lo < 1 || w < 0 || cap < 0) return -1;
+    const int64_t band = 2 * w + 1;
+    const int64_t L = std::min(lo, ls);
+    // a walk has len M or I ops and at most 2w + len - 1 D ops
+    const int64_t ops_cap = 2 * (L + w);
+    std::vector<int64_t> tables(static_cast<size_t>(3 * L * band));
+    std::vector<int64_t> rows(static_cast<size_t>(5 * L));
+    std::vector<int64_t> win(static_cast<size_t>(L + 2 * w));
+    std::vector<uint8_t> ops(static_cast<size_t>(ops_cap));
+    int64_t* M = tables.data();
+    int64_t* X = M + L * band;
+    int64_t* Y = X + L * band;
+    int64_t done = 0, cursor = 0;
+    for (int64_t g = 0; g < G; ++g) {
+        out_n_runs[g] = -1;
+        const int64_t len = lens[g], strand = strands[g];
+        if (len < 1 || len > L || (strand != 0 && strand != 1)) continue;
+        const int8_t* rd = oriented + g * lo;
+        const int64_t* s = scores + strand * ls * 25;
+        for (int64_t i = 0; i < len; ++i) {
+            const int64_t prof = strand == 0 ? i : len - 1 - i;
+            const int64_t c = std::min<int64_t>(std::max<int64_t>(rd[i], 0),
+                                                4);
+            for (int64_t r = 0; r < 5; ++r)
+                rows[size_t(i * 5 + r)] = s[prof * 25 + r * 5 + c];
+        }
+        bool ok = true;
+        const int64_t w0 = diags[g] - w;
+        for (int64_t t = 0; t < len + 2 * w; ++t) {
+            const int64_t at = w0 + t;
+            const int64_t b = at >= 0 && at < ref_len ? ref[at] : 4;
+            ok = ok && b >= 0 && b <= 4;
+            win[size_t(t)] = b;
+        }
+        int64_t n_ops = 0, start_j = 0;
+        if (!ok || !traceback_row(rows.data(), win.data(), len, band,
+                                  gap_open, gap_extend, M, X, Y, ops.data(),
+                                  ops_cap, &n_ops, &start_j))
+            continue;
+        const int64_t pos = w0 + start_j;
+        int64_t n_runs = 0, nm = 0, ri = pos, qi = 0;
+        for (int64_t k = n_ops - 1; k >= 0;) {   // first op to last
+            const uint8_t op = ops[size_t(k)];
+            int64_t run = 0;
+            while (k >= 0 && ops[size_t(k)] == op) {
+                ++run;
+                --k;
+            }
+            if (cursor + n_runs >= cap) {
+                ok = false;
+                break;
+            }
+            run_ops[cursor + n_runs] = op;
+            run_lens[cursor + n_runs] = int32_t(run);
+            ++n_runs;
+            if (op == kOpM) {
+                if (ri < 0 || ri + run > ref_len) {
+                    ok = false;
+                    break;
+                }
+                for (int64_t t = 0; t < run; ++t) {
+                    const int8_t rb = ref[ri + t], cb = rd[qi + t];
+                    nm += (rb != cb) | (rb == 4) | (cb == 4);
+                }
+                ri += run;
+                qi += run;
+            } else {
+                nm += run;
+                (op == kOpI ? qi : ri) += run;
+            }
+        }
+        if (!ok) continue;
+        cursor += n_runs;
+        out_pos[g] = pos;
+        out_nm[g] = int32_t(nm);
+        out_n_runs[g] = int32_t(n_runs);
+        ++done;
+    }
+    return done;
 }
 
 }  // extern "C"

@@ -25,6 +25,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from parasuite_tpu_torch import native
 from parasuite_tpu_torch.config import AlignConfig
 from parasuite_tpu_torch.errormodel.scoring import (complement_score_tensor,
                                                     flat_score_tensor)
@@ -89,22 +90,26 @@ def host_tracebacks_batch(ref_seq: np.ndarray, s_tensor: np.ndarray,
                           oriented: np.ndarray, lens: np.ndarray,
                           strands: np.ndarray, diags: np.ndarray
                           ) -> list[tuple[int, list, int]]:
-    """host_traceback for MANY gapped reads at once: the banded DP tables
-    are filled for all G reads in one numpy pass (the per-read oracle DP is
-    ~3.5 ms of Python loops; on exon-dense references 1-2% of reads go
-    gapped, which made to_host the pipeline bottleneck — measured 0.75 s of
-    a 16k batch, i.e. the entire combined-world throughput gap vs bench.py's
-    world). Per-read work that remains is the O(L) traceback walk on the
-    finished tables, via oracle.traceback_alignment — so tie-break semantics
-    are the oracle's by construction, and outputs are bit-identical to
-    host_traceback (tests/test_pipeline.py::test_batched_traceback_parity).
+    """host_traceback for MANY gapped reads at once, bit-identical to it
+    (tests/test_torch_native_traceback.py). Every row's score rows,
+    reference window, banded DP, walk back and NM run in one call of the
+    native library (native.tracebacks_batch, single-threaded, the GIL
+    released, so the stream's reader and writer run meanwhile); Python
+    builds the CIGAR lists from its runs. Without the library, or
+    when it leaves a row to numpy (a window that crosses an end of the
+    reference), the batch takes the numpy path: the tables of all G reads in
+    one vectorised DP (_banded_dp_batch), then the oracle's
+    traceback_alignment row by row, so tie-break semantics are the
+    oracle's by construction.
 
     oriented: int8 [G, L] genome-frame reads (N-padded past each length).
     -> [(packed_start_pos, cigar, nm)] per read.
 
-    Spans (utils/runlog.py): engine.tracebacks, with engine.tracebacks.dp
-    (the tables) and engine.tracebacks.walk (the per-read walks) inside;
-    the counter engine.gapped_rows adds G.
+    Spans (utils/runlog.py): engine.tracebacks, with engine.tracebacks.native
+    (the C call and the CIGAR lists) inside, or with
+    engine.tracebacks.dp (the tables) and engine.tracebacks.walk (the
+    per-read walks) on the numpy path; the counter engine.gapped_rows adds
+    G, engine.tracebacks_native the rows the native library finished.
     """
     from parasuite_tpu_torch.oracle.align import traceback_alignment
 
@@ -116,6 +121,13 @@ def host_tracebacks_batch(ref_seq: np.ndarray, s_tensor: np.ndarray,
     lens = lens.astype(np.int64)
     diags = diags.astype(np.int64)
     with span("engine.tracebacks"):
+        if native.available():
+            with span("engine.tracebacks.native"):
+                out = _native_tracebacks(ref_seq, s_tensor, s_comp, cfg,
+                                         oriented, lens, strands, diags)
+            if out is not None:
+                count("engine.tracebacks_native", G)
+                return out
         with span("engine.tracebacks.dp"):
             M, Ix, Iy, rows, refwin = _banded_dp_batch(
                 ref_seq, s_tensor, s_comp, cfg, oriented, lens, strands,
@@ -146,6 +158,25 @@ def host_tracebacks_batch(ref_seq: np.ndarray, s_tensor: np.ndarray,
                         ri += oln
                 out.append((pos, cigar, nm))
     return out
+
+
+_CIGAR_OPS = np.array(["M", "I", "D"])
+
+
+def _native_tracebacks(ref_seq, s_tensor, s_comp, cfg, oriented, lens,
+                       strands, diags):
+    """host_tracebacks_batch's native path -> its list, or None when the
+    library left a row to numpy."""
+    pos, nm, n_runs, run_ops, run_lens = native.tracebacks_batch(
+        s_tensor, s_comp, oriented, lens, strands, diags, ref_seq,
+        cfg.band_width, cfg.gap_open, cfg.gap_extend)
+    if (n_runs < 0).any():
+        return None
+    ends = np.cumsum(n_runs).tolist()
+    runs = list(zip(_CIGAR_OPS[run_ops[:ends[-1]]].tolist(),
+                    run_lens[:ends[-1]].tolist()))
+    return [(p, runs[b:e], n) for p, b, e, n in
+            zip(pos.tolist(), [0] + ends[:-1], ends, nm.tolist())]
 
 
 def _banded_dp_batch(ref_seq, s_tensor, s_comp, cfg, oriented, lens,

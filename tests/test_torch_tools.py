@@ -284,9 +284,8 @@ def test_profile_e2e_times_without_changing_the_output(mode, j_base,
     named = {"reader.parse", "reader.wait", "main.wait_reads",
              "step.dispatch", "step.pack", "step.upload", "step.replay",
              "engine.to_host", "engine.fetch", "engine.tracebacks",
-             "engine.tracebacks.dp", "engine.tracebacks.walk",
-             "engine.rows", "main.wait_writer", "writer.wait",
-             "writer.emit", "writer.commit"}
+             "engine.tracebacks.native", "engine.rows", "main.wait_writer",
+             "writer.wait", "writer.emit", "writer.commit"}
     if mode == "xa":
         named |= {"engine.xa"}
         named -= {"step.pack"}                  # the unpacked step

@@ -44,8 +44,13 @@ PARENT = {"step.pack": "step.dispatch", "step.upload": "step.dispatch",
           "engine.rows": "engine.to_host",
           "engine.slow_path": "engine.to_host",
           "engine.junction_cigars": "engine.to_host",
+          "engine.tracebacks.native": "engine.tracebacks",
           "engine.tracebacks.dp": "engine.tracebacks",
           "engine.tracebacks.walk": "engine.tracebacks"}
+# the children of engine.tracebacks: the native library's one call, or the
+# numpy DP and walk where the library is unavailable
+TB_KIDS = {"native": ["engine.tracebacks.native"],
+           "numpy": ["engine.tracebacks.dp", "engine.tracebacks.walk"]}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -112,12 +117,24 @@ def _by_id(spans):
     return {s.sid: s for s in spans}
 
 
+def _library(monkeypatch, lib: str) -> None:
+    """lib "numpy": the native library unavailable, every numpy path."""
+    from parasuite_tpu_torch import native
+
+    assert native.available()
+    if lib == "numpy":
+        monkeypatch.setattr(native, "available", lambda: False)
+
+
+@pytest.mark.parametrize("lib", ["native", "numpy"])
 @pytest.mark.parametrize("kind", ["plain", "combined"])
-def test_one_span_of_each_stage_a_batch(cells, kind):
+def test_one_span_of_each_stage_a_batch(cells, kind, lib, monkeypatch):
     """Every stage of the table has one span a batch, on its thread, with
     the batch's index; every engine span sits in the span its layer says,
-    inside it in time, on the same thread and batch; the SAM is the same
-    bytes with recording on and off."""
+    inside it in time, on the same thread and batch; the host tracebacks'
+    children are the native call, or the numpy DP and walk without the
+    library; the SAM is the same bytes with recording on and off."""
+    _library(monkeypatch, lib)
     cell = cells(kind)
     log = RunLog(record=True)
     recorded = cell.stream("rec.sam", log)
@@ -133,8 +150,9 @@ def test_one_span_of_each_stage_a_batch(cells, kind):
     assert [(s.thread, s.batch, s.parent) for s in drain] == \
         [("main", N_BATCHES, None)]
     names = {s.name for s in log.spans}
-    assert {"engine.tracebacks", "engine.tracebacks.dp",
-            "engine.tracebacks.walk", "engine.rows"} <= names
+    assert {"engine.tracebacks", "engine.rows", *TB_KIDS[lib]} <= names
+    other = "numpy" if lib == "native" else "native"
+    assert not set(TB_KIDS[other]) & names
     if kind == "combined":
         assert "engine.slow_path" in names
     for s in log.spans:
@@ -153,20 +171,24 @@ def test_one_span_of_each_stage_a_batch(cells, kind):
                for s in tb)
     for s in tb:
         kids = sorted(k.name for k in log.spans if k.parent == s.sid)
-        assert kids == ["engine.tracebacks.dp", "engine.tracebacks.walk"]
+        assert kids == TB_KIDS[lib]
 
 
+@pytest.mark.parametrize("lib", ["native", "numpy"])
 @pytest.mark.parametrize("kind", ["plain", "combined"])
-def test_counters_add_up(cells, kind, monkeypatch):
+def test_counters_add_up(cells, kind, lib, monkeypatch):
     """reads sums to the library, per batch to its real reads;
     engine.gapped_rows to the rows handed to the host tracebacks (in the
-    plain engine, the records with mapped & ~ug_equal); the combined
+    plain engine, the records with mapped & ~ug_equal), all of them
+    finished by the native library (engine.tracebacks_native) when it is
+    there and none without it; the combined
     engine's slow-path rows, wire entries and junction winners to what its
     slow path and its own counters saw; bytes up and down to the wire's
     22 and 13 bytes a read (plain); writer.sam_bytes to the SAM body."""
     import parasuite_tpu_torch.pipeline.align as palign
     import parasuite_tpu_torch.pipeline.combined as pcombined
 
+    _library(monkeypatch, lib)
     cell = cells(kind)
     eng = cell.engine
     hosts, tb_rows, tx_rows = [], [], []
@@ -201,6 +223,8 @@ def test_counters_add_up(cells, kind, monkeypatch):
     assert [per_batch[(k, "reads")] for k in range(1, N_BATCHES + 1)] == \
         [n for n, _h in hosts]
     assert c["engine.gapped_rows"] == sum(tb_rows) > 0
+    assert c.get("engine.tracebacks_native", 0) == (
+        c["engine.gapped_rows"] if lib == "native" else 0)
     if kind == "plain":
         assert c["engine.gapped_rows"] == sum(
             int((h.mapped[:n] & ~h.ug_equal[:n]).sum()) for n, h in hosts)

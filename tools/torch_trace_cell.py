@@ -50,6 +50,7 @@ SPAN_MS = {"stream.wait_reads_ms": "main.wait_reads",
            "stream.wait_writer_ms": "main.wait_writer",
            "step.pack_ms": "step.pack", "step.upload_ms": "step.upload",
            "engine.fetch_ms": "engine.fetch",
+           "engine.tb_native_ms": "engine.tracebacks.native",
            "engine.tb_dp_ms": "engine.tracebacks.dp",
            "engine.tb_walk_ms": "engine.tracebacks.walk"}
 PER_KREAD = {"engine.gapped_per_kread": "engine.gapped_rows",
