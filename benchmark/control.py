@@ -2,7 +2,10 @@
 program's place with its DP in int8 (every score saturated to
 [-128, 127]), the narrowest integer type a packed kernel would tempt,
 judged by the same comparison as a run (harness/judge.py) on the cell's own
-inputs and sample. It must come out not correct.
+inputs and sample. The exact reference is the one the configuration's mode
+makes (modes/<mode>.py `reference`, with no library call's records: tap
+None), and the control scores with its score tensor. It must come out not
+correct.
 
     python3 benchmark/control.py --workload <cell> --seeds <n> [<n> ...]
 
@@ -29,20 +32,21 @@ from harness.spec import Bench  # noqa: E402
 def control_reading(bench: Bench, cell_name: str, seed: int) -> dict:
     cell = bench.cell(cell_name)
     conf = bench.config(cell["config"])
+    mode = bench.mode(conf["mode"])
     mix = bench.traffic(cell["traffic"])
     genome = world.make_genome(conf["genome"], seed)
     txs = (world.make_annotation(conf["annotation"], genome, seed)
-           if conf["mode"] == "combined" else [])
+           if mode.ANNOTATION else [])
     n_lib = int(conf["library_reads"])
     lib = world.make_library(mix, n_lib, genome, txs, seed)
     idx = judge.sample(n_lib, int(conf["sample_reads"]), seed)
     names = [world.read_name(i) for i in idx]
     t0 = time.perf_counter()
-    exact = reference.Reference(genome, conf["align"], txs).sam_lines(
-        lib.codes[idx], lib.lengths[idx], names, lib.qual)
+    ref = mode.reference(genome, conf["align"], txs, None)
+    exact = ref.sam_lines(lib.codes[idx], lib.lengths[idx], names, lib.qual)
     t1 = time.perf_counter()
-    ctl = reference.Reference(genome, conf["align"], txs,
-                              int_bits=8).sam_lines(
+    ctl = reference.Reference(genome, conf["align"], txs, int_bits=8,
+                              s_fwd=ref.s_fwd).sam_lines(
         lib.codes[idx], lib.lengths[idx], names, lib.qual)
     differ, _ex = judge.judge(ctl, exact, range(len(exact)))
     chk = judge.checks(differ, 0)["records_differ"]

@@ -33,6 +33,12 @@ sample of thousands of reads takes seconds:
 
 `int_bits` selects the DP's integer width: 32 is the configuration's exact
 arithmetic; 8 is the control (every score saturated to [-128, 127]).
+`s_fwd`, an integer [max_read_len, 5, 5] tensor S[read cycle, ref base, read
+base], replaces the flat one of match_score, mismatch_score and n_score (a
+learned pass-2 profile): a forward entry scores its step i with S[i], a
+reverse-strand one its step i with the complemented S[ln - 1 - i], the
+read's own cycle. The mapping threshold stays min_score_frac * len *
+match_score whatever S is.
 """
 
 from __future__ import annotations
@@ -343,7 +349,7 @@ class Reference:
     combined genome + transcriptome packing)."""
 
     def __init__(self, genome: dict, params: dict, transcripts=None,
-                 int_bits: int = 32):
+                 int_bits: int = 32, s_fwd=None):
         self.p = params
         self.ar = Arith(int_bits)
         self.genome = Packed(genome, params["chrom_spacer"])
@@ -359,7 +365,13 @@ class Reference:
             self.packed = self.genome
             self.tx_boundary = None
         L = params["max_read_len"]
-        self.s_fwd = score_tensor(params, L)
+        if s_fwd is None:
+            s_fwd = score_tensor(params, L)
+        s_fwd = np.asarray(s_fwd)
+        if s_fwd.shape != (L, 5, 5) or s_fwd.dtype.kind not in "iu":
+            raise ValueError(f"s_fwd must be an integer [{L}, 5, 5] "
+                             f"tensor, not {s_fwd.dtype} {s_fwd.shape}")
+        self.s_fwd = s_fwd.astype(np.int64)
         self.s_rev = complement_tensor(self.s_fwd)
 
     # --- candidates and their DP ---

@@ -1,7 +1,8 @@
 """The system under test, parasuite_tpu_torch, driven as a user drives it:
-the engine built from the genome (and annotation) as `cli index` + `align`
-(or `combine` + a combined `align`) builds it, and the library streamed
-FASTQ -> SAM through pipeline/stream.py::streaming_align.
+the engine built from the genome (and annotation) as the configuration's
+mode builds it (modes/<mode>.py: `cli index` + `align`, or `combine` + a
+combined `align`), and the library streamed FASTQ -> SAM through
+pipeline/stream.py::streaming_align by the mode's library call.
 
 The rate counts the reads of every batch the writer thread committed in
 the window: streaming_align logs an align.batch event after each commit
@@ -77,27 +78,11 @@ def sam_output(work):
 
 
 def build_engine(conf: dict, genome: dict, txs: list, device: str):
-    from parasuite_tpu_torch.config import AlignConfig
-    from parasuite_tpu_torch.index import KmerIndex, PackedReference
+    """The engine of the configuration's mode (modes/<mode>.py build), for
+    the tools and tests that build a cell's engine outside a run."""
+    from harness import spec
 
-    cfg = AlignConfig(**conf["align"])
-    if conf["mode"] == "combined":
-        from parasuite_tpu_torch.pipeline.combined import (CombinedEngine,
-                                                           CombinedReference,
-                                                           Transcript)
-
-        comb = CombinedReference.build(
-            genome, [Transcript(t.tx_id, t.chrom, t.strand, t.exon_starts,
-                                t.exon_ends) for t in txs],
-            spacer=cfg.chrom_spacer)
-        return CombinedEngine(comb, KmerIndex.build(comb.ref.seq,
-                                                    cfg.kmer_size),
-                              cfg, device=device)
-    from parasuite_tpu_torch.pipeline.align import AlignerEngine
-
-    ref = PackedReference.from_dict(genome, spacer=cfg.chrom_spacer)
-    return AlignerEngine(ref, KmerIndex.build(ref.seq, cfg.kmer_size), cfg,
-                         device=device)
+    return spec.mode(conf["mode"]).build(conf, genome, txs, device)
 
 
 def stream(engine, fastq, out_sam, tap: SamTap, log=None) -> int:
@@ -118,19 +103,38 @@ def sync(device: str) -> None:
         torch.cuda.synchronize()
 
 
+def recording_log():
+    """The traced window's run log: a RunLog(record=True), which keeps the
+    program's spans and counters (parasuite_tpu_torch/utils/runlog.py), that
+    also stamps every committed batch as CommitLog does."""
+    from parasuite_tpu_torch.utils.runlog import RunLog
+
+    class CommitRunLog(RunLog):
+        live = True            # streaming_align builds align.batch for it
+
+        def __init__(self):
+            super().__init__(record=True)
+            self.commits: list = []
+
+        event = CommitLog.event
+
+    return CommitRunLog()
+
+
 def window(engine, fastq, out_sam, tap: SamTap, seconds: float,
-           device: str):
-    """Library calls back to back from t0 until t0 + seconds; the call in
-    flight at the deadline runs to its end, and none of its batches
-    committed after the deadline count.
+           device: str, call=stream, log=None):
+    """Library calls (`call`, a mode's) back to back from t0 until t0 +
+    seconds; the call in flight at the deadline runs to its end, and none of
+    its batches committed after the deadline count. `log` is a CommitLog
+    unless given (recording_log in a traced run).
     -> (reads committed in the window, [records of each call])."""
-    log = CommitLog()
+    log = CommitLog() if log is None else log
     sync(device)
     t0 = time.perf_counter()
     deadline = t0 + seconds
     calls = []
     while True:
-        calls.append(stream(engine, fastq, out_sam, tap, log))
+        calls.append(call(engine, fastq, out_sam, tap, log))
         if time.perf_counter() >= deadline:
             break
     return sum(r for t, r in log.commits if t <= deadline), calls

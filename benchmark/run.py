@@ -5,22 +5,25 @@
 
 Run from the root of a checkout. The cell (BENCHMARK.json `workloads`)
 names a configuration (benchmark/configs/<config>.json: the genome, the
-annotation, the aligner's settings, the library size) and a traffic mix
-(benchmark/traffic/<traffic>.json: the read model). The run:
+annotation, the aligner's settings, the library size, and the pipeline it
+runs, its `mode`: benchmark/modes/<mode>.py, harness/spec.py) and a
+traffic mix (benchmark/traffic/<traffic>.json: the read model). The run:
 
-1. set-up: makes the genome, annotation and read library from --seed,
-   writes the library as FASTQ under TMPDIR, builds the index and the
-   engine on the card, and streams the whole library once (kernel build on
-   a first run, graph capture, warm caches);
-2. window: streams the library FASTQ -> SAM through streaming_align, back
-   to back, for --seconds, each call writing its SAM into a file in memory
-   that the next call truncates (harness/system.py); reads_per_s is the
+1. set-up: makes the genome, annotation (where the mode takes one) and read
+   library from --seed, writes the library as FASTQ under TMPDIR, builds
+   the mode's engine on the card, and makes one library call of the mode
+   over the whole library (kernel build on a first run, graph capture,
+   warm caches);
+2. window: the mode's library calls FASTQ -> SAM, back to back, for
+   --seconds, each call writing its SAM into a file in memory that the
+   next call truncates (harness/system.py); reads_per_s (for a cell
+   whose end_to_end lists it; stream.reads_per_s in a traced run) is the
    reads of every batch committed in the window over --seconds, and
    device_mem_peak_mib the card's peak allocated memory by then; with
-   --trace 1 the stage timers run instead and one more library call is
-   traced on the device;
+   --trace 1 the stage timers run and the program records its spans and
+   counters instead, and one more library call is traced on the device;
 3. judge: frees the engine, draws a sample of the last call's SAM records
-   from the seed and holds each to the plain reference (harness/
+   from the seed and holds each to the mode's plain reference (harness/
    reference.py), byte for byte;
 4. prints one JSON line: correct, attempted, failed, metrics, device
    (with --trace 1 also breakdown), and last the numbers compared with
@@ -82,15 +85,28 @@ def per_layer(bench, cell: str, run) -> dict:
     return out
 
 
+def spans_and_counters(log) -> dict:
+    """The program's spans and counters that the window's library calls
+    recorded (parasuite_tpu_torch/utils/runlog.py), for the readers:
+    `spans` {name: {seconds (inclusive), self_seconds, calls}} and
+    `counters` {name: total}, and each span and each batch's counter as
+    recorded (`span_records`: Span tuples, perf_counter_ns; `counter_records`:
+    {(call, batch, name): n})."""
+    summary = log.summary()
+    return {"spans": summary["spans"], "counters": summary["counters"],
+            "span_records": log.spans, "counter_records": log.counters}
+
+
 def run_cell(bench, cell_name: str, seed: int, seconds: float, trace: bool,
              device: str = "cuda") -> dict:
     """Set-up, window and judge of one cell -> the result's fields."""
     import torch
 
-    from harness import bounds, judge, reference, system, world
+    from harness import bounds, judge, system, world
 
     cell = bench.cell(cell_name)
     conf = bench.config(cell["config"])
+    mode = bench.mode(conf["mode"])
     mix = bench.traffic(cell["traffic"])
     n_lib = int(conf["library_reads"])
     B = int(conf["align"]["batch_size"])
@@ -100,7 +116,7 @@ def run_cell(bench, cell_name: str, seed: int, seconds: float, trace: bool,
     # --- 1. set-up ---
     genome = world.make_genome(conf["genome"], seed)
     txs = (world.make_annotation(conf["annotation"], genome, seed)
-           if conf["mode"] == "combined" else [])
+           if mode.ANNOTATION else [])
     lib = world.make_library(mix, n_lib, genome, txs, seed)
     work = Path(tempfile.mkdtemp(prefix="bench_run_"))
     sam_fd = None
@@ -108,26 +124,26 @@ def run_cell(bench, cell_name: str, seed: int, seconds: float, trace: bool,
         fastq = work / "reads.fastq"
         out_sam, sam_fd = system.sam_output(work)
         written = world.write_fastq(fastq, lib)
-        engine = system.build_engine(conf, genome, txs, device)
+        engine = mode.build(conf, genome, txs, device)
         tap = system.SamTap(engine)
-        calls = [system.stream(engine, fastq, out_sam, tap)]
+        calls = [mode.call(engine, fastq, out_sam, tap)]
         system.sync(device)
         setup_s = since_process_start()
 
         # --- 2. window ---
-        probe = dev = None
+        probe = dev = log = None
         if trace:
             from harness.probe import Probe
             from harness.trace import DeviceTrace
 
-            n_b = n_lib // B
-            dev = DeviceTrace(n_b // 2, n_b)
+            dev = DeviceTrace(*mode.traced(n_lib // B))
             probe = Probe(engine, hook=dev.at)
             probe.acc.reset()
             probe.n_dispatch = -10**9     # the hook fires in the last call
+            log = system.recording_log()
         cpu0, t0 = os.times(), time.perf_counter()
         committed, win_calls = system.window(engine, fastq, out_sam, tap,
-                                             seconds, device)
+                                             seconds, device, mode.call, log)
         cpu1, t1 = os.times(), time.perf_counter()
         calls += win_calls
         timers = batches = None
@@ -138,7 +154,7 @@ def run_cell(bench, cell_name: str, seed: int, seconds: float, trace: bool,
             probe.acc.intervals = []
             probe.n_dispatch = 0
             if device.startswith("cuda"):
-                calls.append(system.stream(engine, fastq, out_sam, tap))
+                calls.append(mode.call(engine, fastq, out_sam, tap))
                 dev_out = dev.reduce(probe.acc.intervals)
             probe.restore()
         system.sync(device)
@@ -149,7 +165,7 @@ def run_cell(bench, cell_name: str, seed: int, seconds: float, trace: bool,
                     if device.startswith("cuda") else 0)
         p = dict(conf["align"])
         recs = tap.lines()
-        del engine, tap, probe
+        del engine, probe
         gc.collect()
         if device.startswith("cuda"):
             torch.cuda.empty_cache()
@@ -158,7 +174,8 @@ def run_cell(bench, cell_name: str, seed: int, seconds: float, trace: bool,
         short = sum(1 for n in calls if n != n_lib) + (len(recs) != n_lib)
         idx = judge.sample(n_lib, int(conf["sample_reads"]), seed)
         t_ref = time.perf_counter()
-        ref = reference.Reference(genome, p, txs)
+        ref = mode.reference(genome, p, txs, tap)
+        del tap
         want = ref.sam_lines(lib.codes[idx], lib.lengths[idx],
                              [world.read_name(i) for i in idx], lib.qual)
         differ, examples = judge.judge(recs, want, idx)
@@ -209,6 +226,7 @@ def run_cell(bench, cell_name: str, seed: int, seconds: float, trace: bool,
                                                     - cpu0.system),
             window_reads=int(sum(win_calls)),
             window_committed=committed, seconds=seconds,
+            **spans_and_counters(log),
             kernels=dev_out["kernels"] if dev_out else None,
             busy_s=dev_out["busy_s"] if dev_out else None,
             window_s=dev_out["window_s"] if dev_out else None,

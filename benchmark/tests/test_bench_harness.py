@@ -1,8 +1,10 @@
 """CPU tests of the benchmark harness, at a tiny size: the harness finds its
-cells, configurations, mixes and metrics by name (and picks up added files
-with no edit), the plain reference agrees with the program's records, a
-changed or missing record fails the comparison, the result line has its
-keys, and a measurement run without a card prints nothing.
+cells, configurations, modes, mixes and metrics by name (and picks up added
+files with no edit, a pipeline too), the plain reference agrees with the
+program's records, with the flat scores and with a learned score tensor, a
+changed or missing record fails the comparison, a traced run hands the
+readers the program's spans and counters, the result line has its keys,
+and a measurement run without a card prints nothing.
 
     python -m pytest benchmark/tests -q
 
@@ -75,10 +77,16 @@ def tiny(tmp_path_factory) -> Bench:
 @pytest.mark.parametrize("cell", [
     "tiny_chr22_align.parclip50", "tiny_chr22_combined.junction50",
     "tiny_chr22_align.gapless50", "tiny_chr22_combined.intronic50"])
-def test_reference_agrees_with_the_program(tiny, cell):
-    """The whole run on the CPU: the program's sampled records equal the
-    plain reference's, and every call wrote the whole library."""
+def test_reference_agrees_with_the_program(tiny, cell, monkeypatch):
+    """The whole run on the CPU, through the mode file the configuration
+    names: the program's sampled records equal the plain reference's, and
+    every call wrote the whole library."""
+    found = []
+    mode = tiny.mode
+    monkeypatch.setattr(tiny, "mode",
+                        lambda name: found.append(name) or mode(name))
     res = run.run_cell(tiny, cell, SEED, 0.5, False, device="cpu")
+    assert found == [tiny.config(tiny.cell(cell)["config"])["mode"]]
     assert res["correct"], res["checks"]
     assert res["checks"] == {"records_differ": {"value": 0, "limit": 0},
                              "calls_short": {"value": 0, "limit": 0}}
@@ -126,6 +134,162 @@ def test_added_files_are_found_by_name(tmp_path):
             "engine.tracebacks_ms", "step.dispatch_ms"} <= set(res["metrics"])
     assert "stream.batches" not in res["metrics"]
     assert "engine.slow_path_ms" not in res["metrics"]
+
+
+# A pipeline that no mode file of the benchmark runs: profile-aware align,
+# with a score tensor S[cycle, ref, read] drawn from a seed (position-
+# dependent, and T read as C cheap where A read as G is not, so the strands
+# score differently) swapped into the engine; `reference` scores with S, or
+# with the flat tensor in the control's copy.
+LEARNED_MODE = '''"""Profile-aware align: mode align with a learned score tensor."""
+
+from pathlib import Path
+
+import numpy as np
+
+from harness import reference as plain, spec
+
+ANNOTATION = False
+ALIGN = spec.mode("align", Path(__file__).resolve().parents[1])
+call, traced = ALIGN.call, ALIGN.traced
+
+
+def learned(params):
+    L = params["max_read_len"]
+    rng = np.random.default_rng({seed})
+    s = np.full((L, 5, 5), params["n_score"], dtype=np.int32)
+    s[:, :4, :4] = rng.integers(-30, -14, (L, 4, 4))
+    s[:, np.arange(4), np.arange(4)] = rng.integers(4, 9, (L, 4))
+    s[:, 3, 1] = rng.integers(-8, 1, L)
+    return s
+
+
+def build(conf, genome, txs, device):
+    engine = ALIGN.build(conf, genome, txs, device)
+    engine.set_profile(learned(conf["align"]))
+    return engine
+
+
+def reference(genome, params, txs, tap):
+    return plain.Reference(genome, params, txs, s_fwd={s_fwd})
+'''
+
+
+def learned_bench(dst: Path) -> Bench:
+    """tiny_bench with two added modes, configurations and cells, as a
+    later pipeline adds them (new files and entries): `align_learned`, and
+    `align_learned_flat`, whose reference keeps the flat scores."""
+    b = tiny_bench(dst)
+    spec = json.loads((b.root / "BENCHMARK.json").read_text())
+    conf = b.config("tiny_chr22_align")
+    for name, s_fwd in (("align_learned", "learned(params)"),
+                        ("align_learned_flat", "None")):
+        (b.dir / "modes" / f"{name}.py").write_text(
+            LEARNED_MODE.format(seed=SEED, s_fwd=s_fwd))
+        conf["mode"] = name
+        (b.dir / "configs" / f"tiny_{name}.json").write_text(
+            json.dumps(conf))
+        spec["workloads"].append({
+            "name": f"tiny_{name}.parclip50", "config": f"tiny_{name}",
+            "traffic": "parclip50", "chips": 1, "why": "t"})
+    (b.root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return Bench(b.dir)
+
+
+@pytest.fixture(scope="module")
+def learned(tmp_path_factory) -> Bench:
+    return learned_bench(tmp_path_factory.mktemp("learned"))
+
+
+@pytest.mark.parametrize("mode", ["align_learned", "align_learned_flat"])
+def test_added_mode_is_found_by_name(learned, mode):
+    """A pipeline added as a mode file, a configuration naming it and a
+    cell, with no edit of the harness: the program, its engine scoring with
+    the learned S, agrees with the reference given S on every sampled
+    record; against the flat reference (the control) records differ, so S
+    did work."""
+    cell = f"tiny_{mode}.parclip50"
+    res = run.run_cell(learned, cell, SEED, 0.5, False, device="cpu")
+    assert res["checks"]["calls_short"]["value"] == 0
+    if mode == "align_learned":
+        assert res["correct"], res["checks"]
+    else:
+        assert not res["correct"]
+        assert res["checks"]["records_differ"]["value"] > 0
+
+
+def test_reference_takes_a_score_tensor(learned, tmp_path):
+    """Reference(s_fwd=the flat tensor) is the default reference; with a
+    cycle-varying S it writes the port's records after set_profile(S) for
+    every read of a batch, the reverse-strand and gapped ones too; a tensor
+    of another shape or a float one is refused."""
+    from harness import reference, world
+    from parasuite_tpu_torch.pipeline.stream import streaming_align
+
+    conf = learned.config("tiny_align_learned")
+    p = conf["align"]
+    mix = learned.traffic("parclip50")
+    genome = world.make_genome(conf["genome"], SEED)
+    lib = world.make_library(mix, p["batch_size"], genome, [], SEED)
+    names = [world.read_name(i) for i in range(p["batch_size"])]
+    args = (lib.codes, lib.lengths, names, lib.qual)
+    flat = reference.Reference(genome, p).sam_lines(*args)
+    assert reference.Reference(genome, p, s_fwd=reference.score_tensor(
+        p, p["max_read_len"])).sam_lines(*args) == flat
+
+    mode = learned.mode("align_learned")
+    S = mode.learned(p)
+    want = reference.Reference(genome, p, s_fwd=S).sam_lines(*args)
+    fastq, out = tmp_path / "r.fastq", tmp_path / "out.sam"
+    world.write_fastq(fastq, lib)
+    streaming_align(mode.build(conf, genome, [], "cpu"), fastq, out)
+    got = [ln for ln in out.read_bytes().split(b"\n")
+           if ln and not ln.startswith(b"@")]
+    assert got == want
+    rows = [ln.split(b"\t") for ln in want]
+    assert sum(r[1] == b"16" for r in rows) > len(rows) // 4
+    assert any(b"D" in r[5] for r in rows if r[1] == b"16")
+    assert sum(a != b for a, b in zip(want, flat)) > len(rows) // 2
+    for bad in (S[:-1], S.astype(np.float64)):
+        with pytest.raises(ValueError):
+            reference.Reference(genome, p, s_fwd=bad)
+
+
+def test_traced_run_reads_spans(tiny, monkeypatch):
+    """A traced run hands the readers the program's spans and counters of
+    its window (step.pack_ms reads them); an untraced run hands
+    streaming_align a CommitLog, which records nothing, in its window."""
+    import parasuite_tpu_torch.pipeline.stream as pstream
+    from harness import system
+
+    logs, runs = [], []
+    stream = pstream.streaming_align
+
+    def spy(*a, **kw):
+        logs.append(kw.get("log"))
+        return stream(*a, **kw)
+
+    monkeypatch.setattr(pstream, "streaming_align", spy)
+    per_layer = run.per_layer
+    monkeypatch.setattr(run, "per_layer", lambda bench, cell, r: (
+        runs.append(r) or per_layer(bench, cell, r)))
+    cell = "tiny_chr22_align.parclip50"
+    res = run.run_cell(tiny, cell, SEED, 0.5, False, device="cpu")
+    assert res["correct"] and not runs
+    assert logs[0] is None                       # the warm-up call
+    assert len(logs) > 1 and all(type(x) is system.CommitLog
+                                 for x in logs[1:])
+    logs.clear()
+    res = run.run_cell(tiny, cell, SEED, 0.5, True, device="cpu")
+    assert res["correct"]
+    r, = runs
+    window = [x for x in logs if getattr(x, "recording", False)]
+    assert len(window) > 0 and len(set(map(id, window))) == 1
+    assert r.spans["step.pack"]["calls"] == r.batches
+    assert r.spans["step.dispatch"]["calls"] == r.batches
+    assert r.counters["reads"] == r.window_reads
+    assert {s.name for s in r.span_records} == set(r.spans)
+    assert res["metrics"]["step.pack_ms"]["value"] > 0
 
 
 def _altered_answers(monkeypatch):
