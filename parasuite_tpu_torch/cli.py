@@ -194,47 +194,35 @@ def cmd_align(args) -> int:
 
 
 def cmd_twopass(args) -> int:
-    from parasuite_tpu_torch.errormodel.infer import (ErrorProfile,
-                                                      counts_to_profile)
-    from parasuite_tpu_torch.pipeline.stream import streaming_align
+    from parasuite_tpu_torch.pipeline.two_pass import streaming_two_pass
 
     cfg = _cfg_from_args(args)
     engine = _load_engine(args, cfg)
     log = _run_log(args)
     profile_out = args.profile_out or (str(args.out) + ".errorprofile")
-    cl = _command_line(args)
-
-    # pass 1: flat scoring, first-pass SAM + on-device profile counts
-    pass1_sam = str(args.out) + ".pass1.sam"
-    indels: dict = {}
-    _n1, counts, n_profiled = streaming_align(
-        engine, args.fastq, pass1_sam, resume=args.resume,
-        with_profile_counts=True, log=log, command_line=cl,
-        indel_out=indels)
-    profile = ErrorProfile(counts=counts, n_reads=n_profiled,
-                           ins_counts=indels.get("ins"),
-                           del_counts=indels.get("dels"),
-                           n_gapped=indels.get("n_gapped", 0))
-    profile.save(profile_out)
-    log.event("twopass.profile", n_reads=profile.n_reads,
-              n_gapped=profile.n_gapped)
-
-    # pass 2: learned scoring (optionally learned gap penalties too)
     engines = [engine]
-    if args.learned_gaps:
+
+    def learned_gaps(profile):
+        """Pass 2's engine with the gap penalties learned in pass 1."""
         go, ge = profile.gap_penalties(cfg)
-        cfg = dataclasses.replace(cfg, gap_open=go, gap_extend=ge)
-        engine = _load_engine(args, cfg)
-        engines.append(engine)
+        engines.append(_load_engine(args, dataclasses.replace(
+            cfg, gap_open=go, gap_extend=ge)))
         log.event("twopass.gaps", gap_open=go, gap_extend=ge)
-    engine.set_profile(counts_to_profile(profile, cfg))
-    n, _, _ = streaming_align(engine, args.fastq, args.out,
-                              resume=args.resume, log=log, command_line=cl)
+        return engines[-1]
+
+    # pass 1: flat scoring, first-pass SAM + on-device profile counts;
+    # pass 2: learned scoring (optionally learned gap penalties too)
+    n, profile, _n1 = streaming_two_pass(
+        engine, args.fastq, args.out, pass1_out=str(args.out) + ".pass1.sam",
+        profile_out=profile_out, resume=args.resume, log=log,
+        command_line=_command_line(args),
+        pass2_engine=learned_gaps if args.learned_gaps else None)
     log.write_spans()
+    cfg = engines[-1].cfg
     Path(str(args.out) + ".config.json").write_text(cfg.to_json())
     out = {"tool": "twopass", "reads": n,
            "profiled_reads": profile.n_reads, "profile": str(profile_out),
-           "device": str(engine.device), **_engine_counters(engines)}
+           "device": str(engines[-1].device), **_engine_counters(engines)}
     if args.learned_gaps:
         out["gap_open"], out["gap_extend"] = cfg.gap_open, cfg.gap_extend
     print(json.dumps(out))

@@ -221,7 +221,11 @@ def streaming_align(engine, fastq, out_sam, *, resume: bool = False,
     call main.wait_drain (the writer's backlog at the end, under the last
     batch's index); writer.wait,
     writer.emit and writer.commit; and the counters reads and
-    writer.sam_bytes. The align.batch event is built only for a log that
+    writer.sam_bytes. With profile counts, main also has engine.profile a
+    batch after engine.to_host (the device counts' copy to the host and
+    the host's counting), with the counters profile.reads and
+    profile.gapped_rows, which add up to the profile's n_reads and
+    n_gapped. The align.batch event is built only for a log that
     writes somewhere (`live`; a log without the attribute counts as live).
     """
     from parasuite_tpu_torch.errormodel.infer import (
@@ -379,65 +383,72 @@ def streaming_align(engine, fastq, out_sam, *, resume: bool = False,
 
         counts_from_host = getattr(engine, "counts_from_host", False)
 
-        def drain(pend):
-            """Finish one dispatched batch on the main thread (fetch +
-            tracebacks) and hand it to the writer. The checkpoint snapshot
-            is copied HERE so a manifest can never include profile counts
-            from a batch whose records are not yet on disk."""
-            nonlocal counts, n_profiled, n_gapped
-            batch, res, c, idx = pend
-            if with_profile_counts and not counts_from_host:
-                counts += c.cpu().numpy().astype(np.int64)
-            with span("engine.to_host", batch=idx):
-                host = engine.to_host(batch, res)
-            if with_profile_counts and counts_from_host:
+        def profile(batch, host, c) -> tuple[int, int]:
+            """The profile accounting of one batch (with_profile_counts)
+            -> (reads profiled, rows counted from their CIGARs)."""
+            if counts_from_host:
                 # combined mode: counts come from the EMITTED records (the
                 # host re-finalization can re-decide the device winner) —
                 # SURVEY.md §3.3's "count what the record loop writes"
-                dp, dg = engine.accumulate_profile_host(batch, host, counts,
-                                                        ins, dels)
-                n_profiled += dp
-                n_gapped += dg
-            elif with_profile_counts:
-                # every aligned read contributes to the profile: ungapped
-                # via the device scatter-add, gapped below via their CIGARs
-                n_profiled += int((host.mapped
-                                   & (batch.lengths[:len(host.mapped)] > 0)
-                                   ).sum())
-                # indel events + M-segment substitution counts from the
-                # gapped CIGARs to_host already built (SURVEY.md §3.3: the
-                # reference's record loop counts every aligned read)
-                from parasuite_tpu_torch.utils.dna import revcomp_codes
+                return engine.accumulate_profile_host(batch, host, counts,
+                                                      ins, dels)
+            # every aligned read contributes to the profile: ungapped via
+            # the device scatter-add, gapped below via their CIGARs
+            counts[...] += c.cpu().numpy().astype(np.int64)
+            dp = int((host.mapped & (batch.lengths[:len(host.mapped)] > 0)
+                      ).sum())
+            dg = 0
+            # indel events + M-segment substitution counts from the gapped
+            # CIGARs to_host already built (SURVEY.md §3.3: the reference's
+            # record loop counts every aligned read)
+            from parasuite_tpu_torch.utils.dna import revcomp_codes
 
-                for b in range(batch.n_real):
-                    if host.mapped[b] and not host.ug_equal[b]:
+            for b in range(batch.n_real):
+                if host.mapped[b] and not host.ug_equal[b]:
+                    ln = int(batch.lengths[b])
+                    st = int(host.strand[b])
+                    count_indels_from_cigar(host.cigars[b], ln, st, ins, dels)
+                    oriented = (batch.codes[b, :ln] if st == 0 else
+                                revcomp_codes(batch.codes[b, :ln]))
+                    count_substitutions_from_cigar(
+                        engine.sam_ref.seq, int(host.pos[b]), oriented, ln,
+                        st, host.cigars[b], counts)
+                    dg += 1
+            # two-tier rescue (config.rescue_kmer): ungapped rescued rows
+            # never reached the fused device matrix (pass-1-keyed) — count
+            # their substitutions here so every emitted record contributes;
+            # gapped rescued rows went through the loop above already
+            r_rows = getattr(engine, "last_rescue_rows", None)
+            if r_rows is not None:
+                for b in r_rows:
+                    b = int(b)
+                    if host.mapped[b] and host.ug_equal[b]:
                         ln = int(batch.lengths[b])
                         st = int(host.strand[b])
-                        count_indels_from_cigar(
-                            host.cigars[b], ln, st, ins, dels)
                         oriented = (batch.codes[b, :ln] if st == 0 else
                                     revcomp_codes(batch.codes[b, :ln]))
                         count_substitutions_from_cigar(
                             engine.sam_ref.seq, int(host.pos[b]), oriented,
                             ln, st, host.cigars[b], counts)
-                        n_gapped += 1
-                # two-tier rescue (config.rescue_kmer): ungapped rescued
-                # rows never reached the fused device matrix (pass-1-keyed)
-                # — count their substitutions here so every emitted record
-                # contributes; gapped rescued rows went through the loop
-                # above already
-                r_rows = getattr(engine, "last_rescue_rows", None)
-                if r_rows is not None:
-                    for b in r_rows:
-                        b = int(b)
-                        if host.mapped[b] and host.ug_equal[b]:
-                            ln = int(batch.lengths[b])
-                            st = int(host.strand[b])
-                            oriented = (batch.codes[b, :ln] if st == 0 else
-                                        revcomp_codes(batch.codes[b, :ln]))
-                            count_substitutions_from_cigar(
-                                engine.sam_ref.seq, int(host.pos[b]),
-                                oriented, ln, st, host.cigars[b], counts)
+            return dp, dg
+
+        def drain(pend):
+            """Finish one dispatched batch on the main thread (fetch +
+            tracebacks, and a profile pass's accounting) and hand it to the
+            writer. The checkpoint snapshot is copied HERE so a manifest can
+            never include profile counts from a batch whose records are not
+            yet on disk."""
+            nonlocal n_profiled, n_gapped
+            batch, res, c, idx = pend
+            with span("engine.to_host", batch=idx):
+                host = engine.to_host(batch, res)
+            if with_profile_counts:
+                with span("engine.profile", batch=idx):
+                    dp, dg = profile(batch, host, c)
+                    count("profile.reads", dp)
+                    count("profile.gapped_rows", dg)
+                n_profiled += dp
+                n_gapped += dg
             snap = {"profiled": n_profiled,
                     "counts": counts.copy() if with_profile_counts else None,
                     "indels": ((ins.copy(), dels.copy(), n_gapped)

@@ -1,6 +1,7 @@
 """The program's spans and counters in one cell of the benchmark
 (BENCHMARK.json `workloads`): the cell's world built from --seed as
-benchmark/run.py builds it, then
+benchmark/run.py builds it, and its library calls made by the mode file its
+configuration names (benchmark/modes/<mode>.py), then
 
 1. a window of --seconds, library calls back to back, with the spans
    recorded and the benchmark's stage timers (benchmark/harness/probe.py)
@@ -79,16 +80,17 @@ class CommitRunLog(RunLog):
             self.commits.append((time.perf_counter(), fields["reads"]))
 
 
-def window(engine, fastq, out_sam, tap, seconds: float, device: str, log):
-    """benchmark/harness/system.py window with the given log ->
-    (reads committed in the window, calls)."""
+def window(engine, fastq, out_sam, tap, seconds: float, device: str, log,
+           call):
+    """benchmark/harness/system.py window with the given log and library
+    call -> (reads committed in the window, calls)."""
     from harness import system
 
     system.sync(device)
     deadline = time.perf_counter() + seconds
     calls = []
     while True:
-        calls.append(system.stream(engine, fastq, out_sam, tap, log))
+        calls.append(call(engine, fastq, out_sam, tap, log))
         if time.perf_counter() >= deadline:
             break
     return sum(r for t, r in log.commits if t <= deadline), calls
@@ -131,11 +133,12 @@ def main(argv=None) -> int:
     bench = Bench(Path(args.bench))
     cell = bench.cell(args.workload)
     conf = bench.config(cell["config"])
+    mode = bench.mode(conf["mode"])
     mix = bench.traffic(cell["traffic"])
     n_lib = int(conf["library_reads"])
     genome = world.make_genome(conf["genome"], args.seed)
     txs = (world.make_annotation(conf["annotation"], genome, args.seed)
-           if conf["mode"] == "combined" else [])
+           if mode.ANNOTATION else [])
     lib = world.make_library(mix, n_lib, genome, txs, args.seed)
     work = Path(tempfile.mkdtemp(prefix="trace_cell_"))
     sam_fd = None
@@ -145,16 +148,16 @@ def main(argv=None) -> int:
         fastq = work / "reads.fastq"
         out_sam, sam_fd = system.sam_output(work)
         world.write_fastq(fastq, lib)
-        engine = system.build_engine(conf, genome, txs, dev)
+        engine = mode.build(conf, genome, txs, dev)
         tap = system.SamTap(engine)
-        system.stream(engine, fastq, out_sam, tap)          # warm-up
+        mode.call(engine, fastq, out_sam, tap)              # warm-up
 
         # 1. recorded window, the probe's timers on as well
         log = CommitRunLog()
         probe = hprobe.Probe(engine)
         try:
             committed, calls = window(engine, fastq, out_sam, tap,
-                                      args.seconds, dev, log)
+                                      args.seconds, dev, log, mode.call)
         finally:
             probe.restore()
         rep = span_report(log)
@@ -175,7 +178,7 @@ def main(argv=None) -> int:
             system.sync(dev)
             prof.start()
             t0 = time.perf_counter_ns()
-            system.stream(engine, fastq, out_sam, tap, one)
+            mode.call(engine, fastq, out_sam, tap, one)
             system.sync(dev)
             t1 = time.perf_counter_ns()
             prof.stop()
@@ -192,10 +195,10 @@ def main(argv=None) -> int:
             off, on = [], []
             for _ in range(args.cost_pairs):
                 c, _calls = system.window(engine, fastq, out_sam, tap,
-                                          args.seconds, dev)
+                                          args.seconds, dev, mode.call)
                 off.append(c / args.seconds)
                 c, _calls = window(engine, fastq, out_sam, tap, args.seconds,
-                                   dev, CommitRunLog())
+                                   dev, CommitRunLog(), mode.call)
                 on.append(c / args.seconds)
             mid = statistics.median(off)
             out["cost"] = {"off_reads_per_s": off, "on_reads_per_s": on,
