@@ -10,10 +10,14 @@ runs, its `mode`: benchmark/modes/<mode>.py, harness/spec.py) and a
 traffic mix (benchmark/traffic/<traffic>.json: the read model). The run:
 
 1. set-up: makes the genome, annotation (where the mode takes one) and read
-   library from --seed, writes the library as FASTQ under TMPDIR, builds
-   the mode's engine on the card, and makes one library call of the mode
-   over the whole library (kernel build on a first run, graph capture,
-   warm caches);
+   library from --seed, writes the library as FASTQ under TMPDIR, makes
+   the CUDA context, builds the mode's engine on the card, and makes one
+   library call of the mode over the whole library (kernel build on a
+   first run, graph capture, warm caches); setup_s runs from the process's
+   start to the end of that call, index_to_sam_s (for a cell whose
+   end_to_end lists it) from the build's start: the program's work alone,
+   without the inputs' making and the context. Standard error splits it
+   into the build and the call;
 2. window: the mode's library calls FASTQ -> SAM, back to back, for
    --seconds, each call writing its SAM into a file in memory that the
    next call truncates (harness/system.py); reads_per_s (for a cell
@@ -124,11 +128,20 @@ def run_cell(bench, cell_name: str, seed: int, seconds: float, trace: bool,
         fastq = work / "reads.fastq"
         out_sam, sam_fd = system.sam_output(work)
         written = world.write_fastq(fastq, lib)
+        t_ctx = time.perf_counter()
+        system.make_context(device)
+        # index_to_sam_s: the inputs on disk and the context made, from the
+        # mode's build (index, engine, upload, kernel library) to the end of
+        # the first whole library call
+        t_build = time.perf_counter()
         engine = mode.build(conf, genome, txs, device)
+        t_call = time.perf_counter()
         tap = system.SamTap(engine)
         calls = [mode.call(engine, fastq, out_sam, tap)]
         system.sync(device)
+        t_done = time.perf_counter()
         setup_s = since_process_start()
+        index_to_sam_s = t_done - t_build
 
         # --- 2. window ---
         probe = dev = log = None
@@ -186,6 +199,11 @@ def run_cell(bench, cell_name: str, seed: int, seconds: float, trace: bool,
             os.close(sam_fd)
         shutil.rmtree(work, ignore_errors=True)
     chk = judge.checks(differ, short)
+    print(f"set-up: setup_s {setup_s:.3f} s; index_to_sam_s "
+          f"{index_to_sam_s:.3f} s = build {t_call - t_build:.3f} s + first "
+          f"call {t_done - t_call:.3f} s; before the build "
+          f"{setup_s - index_to_sam_s:.3f} s, the context "
+          f"{t_build - t_ctx:.3f} s of it", file=sys.stderr)
     print(f"window: {committed} reads committed in {seconds} s, "
           f"{len(win_calls)} calls over {t1 - t0:.3f} s, process cpu "
           f"user {cpu1.user - cpu0.user:.3f} s system "
@@ -213,7 +231,8 @@ def run_cell(bench, cell_name: str, seed: int, seconds: float, trace: bool,
     if not trace:
         units = {m["name"]: m["unit"]
                  for m in bench.metrics("end_to_end", cell["name"])}
-        vals = {"reads_per_s": committed / seconds, "setup_s": setup_s}
+        vals = {"reads_per_s": committed / seconds, "setup_s": setup_s,
+                "index_to_sam_s": index_to_sam_s}
         if device.startswith("cuda"):
             vals["device_mem_peak_mib"] = mem_peak / 2**20
         res["metrics"] = {k: {"value": vals[k], "unit": units[k]}

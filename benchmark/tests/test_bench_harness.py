@@ -3,8 +3,9 @@ cells, configurations, modes, mixes and metrics by name (and picks up added
 files with no edit, a pipeline too), the plain reference agrees with the
 program's records, with the flat scores and with a learned score tensor, a
 changed or missing record fails the comparison, a traced run hands the
-readers the program's spans and counters, the result line has its keys,
-and a measurement run without a card prints nothing.
+readers the program's spans and counters, index_to_sam_s is clocked from
+the build to the first call's end, the result line has its keys, and a
+measurement run without a card prints nothing.
 
     python -m pytest benchmark/tests -q
 
@@ -290,6 +291,84 @@ def test_traced_run_reads_spans(tiny, monkeypatch):
     assert r.counters["reads"] == r.window_reads
     assert {s.name for s in r.span_records} == set(r.spans)
     assert res["metrics"]["step.pack_ms"]["value"] > 0
+
+
+def test_the_clock_starts_at_the_build(tiny, monkeypatch):
+    """index_to_sam_s, reported by a cell whose end_to_end lists it (as an
+    added entry would; BENCHMARK.json lists it for no cell, since on the
+    card it spreads at least as widely as setup_s), runs from the build to
+    the end of the first library call, after the sync that follows it, and
+    setup_s holds it: every such result has 0 < index_to_sam_s < setup_s,
+    and on the host's clock index_to_sam_s lies between the first call's
+    end less the build's start and the run's end less the FASTQ's end. A
+    FASTQ written 1.5 s slower (the harness's work) grows setup_s by at
+    least 1 s more than index_to_sam_s; a build 1 s slower grows both by
+    it. The growth is read from setup_s - index_to_sam_s, the harness's
+    part, because one CPU library call's time swings by a second between
+    runs of a loaded host; setup_s is read from each run's start (the test
+    process started long before), and the first run warms the harness."""
+    import time
+
+    from harness import world
+
+    cell = "tiny_chr22_align.parclip50"
+    extra = {"write_fastq": 0.0, "build": 0.0}
+    marks: dict = {}
+    write_fastq, mode = world.write_fastq, tiny.mode
+
+    def slow_write(*a, **kw):
+        time.sleep(extra["write_fastq"])
+        n = write_fastq(*a, **kw)
+        marks["fastq_written"] = time.perf_counter()
+        return n
+
+    def timed_mode(name):
+        m = mode(name)
+        build, call = m.build, m.call
+
+        def slow_build(*a, **kw):
+            marks["build"] = time.perf_counter()
+            time.sleep(extra["build"])
+            return build(*a, **kw)
+
+        def first_call(*a, **kw):
+            n = call(*a, **kw)
+            marks.setdefault("first_call_done", time.perf_counter())
+            return n
+
+        m.build, m.call = slow_build, first_call
+        return m
+
+    monkeypatch.setattr(world, "write_fastq", slow_write)
+    monkeypatch.setattr(tiny, "mode", timed_mode)
+    monkeypatch.setattr(tiny, "spec", dict(tiny.spec, end_to_end=tiny.spec[
+        "end_to_end"] + [{"name": "index_to_sam_s", "unit": "s",
+                          "better": "lower", "bound": 0.25,
+                          "source": "host_clock", "workloads": [cell]}]))
+
+    def clocks(**slower) -> tuple:
+        """-> (setup_s, index_to_sam_s) of one run."""
+        extra.update(dict.fromkeys(extra, 0.0), **slower)
+        marks.clear()
+        t0 = time.perf_counter()
+        monkeypatch.setattr(run, "since_process_start",
+                            lambda: time.perf_counter() - t0)
+        res = run.run_cell(tiny, cell, SEED, 0.3, False, device="cpu")
+        t1 = time.perf_counter()
+        assert res["correct"], res["checks"]
+        setup, i2s = (res["metrics"][k]["value"]
+                      for k in ("setup_s", "index_to_sam_s"))
+        assert 0 < i2s < setup
+        assert (marks["first_call_done"] - marks["build"] <= i2s
+                <= t1 - marks["fastq_written"])
+        return setup, i2s
+
+    clocks()
+    setup, i2s = clocks()
+    setup_f, i2s_f = clocks(write_fastq=1.5)
+    assert (setup_f - i2s_f) - (setup - i2s) >= 1.0
+    setup_b, i2s_b = clocks(build=1.0)
+    assert i2s_b >= 1.0 and (setup_b - i2s_b) - (setup - i2s) < 0.5
 
 
 def _altered_answers(monkeypatch):
