@@ -677,6 +677,16 @@ def select_bound(rows: int, n: int, C: int) -> dict:
     return _bound(rows * (4 * n + 5 * C), rows * (compares + 2 * n + C))
 
 
+def seed_select_bound(rows: int, L: int, S: int, filled: int, n: int,
+                      C: int) -> dict:
+    """select_bound's operations over rows of n entries; bytes: the oriented
+    reads int32 [rows, L], the lengths, S bucket pairs a row, the `filled`
+    positions the rows hold, int32 + bool [rows, C] out."""
+    compares = n * max(1, int(n - 1).bit_length())
+    return _bound(rows * (4 * L + 2 + 8 * S + 5 * C) + 4 * filled,
+                  rows * (compares + 2 * n + C))
+
+
 def extend_bound(lengths: np.ndarray, C: int, L: int, W: int, G: int) -> dict:
     """Bytes: oriented reads int32 [2B, L], lengths, candidates int32
     [2B, C], the reference windows (L + 2W bytes a pair, at most the whole
@@ -873,6 +883,7 @@ def kernels_vs_plain(engine, gpu: str) -> list[dict]:
     oriented, lens, diags = stage_inputs(N_PIN)
     cand, valid = cuda_seed.select_candidates(diags, cfg)
     cand_p, valid_p = cuda_seed.select_candidates_plain(diags, cfg)
+    seeded = cuda_seed.seed_select(oriented, lens, didx, cfg)
     ext = cuda_extend.extend_candidates(oriented, lens, cand, didx, sprof,
                                         cfg)
     ext_p = cuda_extend.extend_candidates_plain(oriented, lens, cand, didx,
@@ -881,6 +892,7 @@ def kernels_vs_plain(engine, gpu: str) -> list[dict]:
     checks = {
         "select_candidates": [(cand, cand_p), (valid, valid_p)],
         "extend_candidates": list(zip(ext, ext_p)),
+        "seed_select": list(zip(seeded, (cand_p, valid_p))),
     }
     timed = {
         "select_candidates": (
@@ -891,22 +903,37 @@ def kernels_vs_plain(engine, gpu: str) -> list[dict]:
                                                     sprof, cfg),
             lambda d: cuda_extend.extend_candidates_plain(
                 d[0], d[1], cand, didx, sprof, cfg)),
+        "seed_select": (
+            lambda d: cuda_seed.seed_select(d[0], d[1], didx, cfg),
+            lambda d: cuda_seed.seed_select_plain(d[0], d[1], didx, cfg)),
     }
+    # what the seeded kernel replaced on the main path: the seed stage's
+    # PyTorch kernels, then the select kernel over their rows
+    replaced = {"seed_select": lambda d: cuda_seed.select_candidates(
+        aligner.seed_diagonals(d[0], d[1], didx, cfg), cfg)}
     sources = {"select_candidates": ("select_candidates.cu",
                                      "parasuite_tpu/ops/pallas_seed.py:40"),
                "extend_candidates": ("extend_candidates.cu",
-                                     "parasuite_tpu/ops/pallas_extend.py:56")}
+                                     "parasuite_tpu/ops/pallas_extend.py:56"),
+               "seed_select": ("select_candidates.cu",
+                               "parasuite_tpu/ops/pallas_seed.py:40 and "
+                               "parasuite_tpu/ops/aligner.py seed_diagonals")}
     d16 = (oriented, lens, diags)
     G = int(didx.ref_seq.shape[0])
 
-    def bounds(n_reads, n_diag):
+    def bounds(n_reads, diags):
+        n_diag = int(diags.shape[1])
         return {"select_candidates": select_bound(
                     2 * n_reads, n_diag, cfg.max_candidates),
                 "extend_candidates": extend_bound(
                     batch.lengths[:n_reads], cfg.max_candidates,
-                    cfg.max_read_len, cfg.band_width, G)}
+                    cfg.max_read_len, cfg.band_width, G),
+                "seed_select": seed_select_bound(
+                    2 * n_reads, cfg.max_read_len, cfg.max_seeds,
+                    int((diags != cuda_seed.I32MAX).sum()), n_diag,
+                    cfg.max_candidates)}
 
-    bound16 = bounds(N_PIN, int(diags.shape[1]))
+    bound16 = bounds(N_PIN, diags)
     for name, pairs in checks.items():
         err = 0
         for k, p in pairs:
@@ -930,33 +957,31 @@ def kernels_vs_plain(engine, gpu: str) -> list[dict]:
                     "plain_ms": _median_ms(lambda: plain(d16)),
                     **_against_bound(name, ms, bound16[name]),
                     "library_ms": None})
+        if name in replaced:
+            out[-1]["replaced_ms"] = _median_ms(lambda: replaced[name](d16))
     # the kernels alone at the main path's batch of 65,536 reads
     oriented, lens, diags = stage_inputs(BATCH)
     cand, _ = cuda_seed.select_candidates(diags, cfg)
-    ms_batch = {
-        "select_candidates": _median_ms(
-            lambda: cuda_seed.select_candidates(diags, cfg)),
-        "extend_candidates": _median_ms(
-            lambda: cuda_extend.extend_candidates(oriented, lens, cand, didx,
-                                                  sprof, cfg))}
+    d_batch = (oriented, lens, diags)
+    kernel_calls = {
+        "select_candidates": lambda: cuda_seed.select_candidates(diags, cfg),
+        "extend_candidates": lambda: cuda_extend.extend_candidates(
+            oriented, lens, cand, didx, sprof, cfg),
+        "seed_select": lambda: cuda_seed.seed_select(oriented, lens, didx,
+                                                     cfg)}
+    ms_batch = {name: _median_ms(fn) for name, fn in kernel_calls.items()}
     # the same calls back to back: the card's own time, the host's enqueue
     # of each call hidden behind the one before
     b2b_batch = {name: _median_ms(lambda: [fn() for _ in range(20)],
                                   reps=5) / 20
-                 for name, fn in (
-                     ("select_candidates",
-                      lambda: cuda_seed.select_candidates(diags, cfg)),
-                     ("extend_candidates",
-                      lambda: cuda_extend.extend_candidates(
-                          oriented, lens, cand, didx, sprof, cfg)))}
-    bound_batch = bounds(BATCH, int(diags.shape[1]))
-    plain_batch = {
-        "select_candidates": _median_ms(
-            lambda: cuda_seed.select_candidates_plain(diags, cfg), reps=3),
-        "extend_candidates": _median_ms(
-            lambda: cuda_extend.extend_candidates_plain(
-                oriented, lens, cand, didx, sprof, cfg), reps=3)}
+                 for name, fn in kernel_calls.items()}
+    bound_batch = bounds(BATCH, diags)
+    plain_batch = {name: _median_ms(lambda: timed[name][1](d_batch), reps=3)
+                   for name in kernel_calls}
     for k in out:
+        if k["name"] in replaced:
+            k["replaced_ms_65536"] = _median_ms(
+                lambda: replaced[k["name"]](d_batch))
         k["ms_65536"] = ms_batch[k["name"]]
         k["plain_ms_65536"] = plain_batch[k["name"]]
         k.update(_against_bound(k["name"], k["ms_65536"],
@@ -1055,23 +1080,26 @@ def _cli_json(argv) -> dict:
 
 
 def _reset_counters():
-    from parasuite_tpu_torch.ops import cuda_extend, cuda_seed
+    from parasuite_tpu_torch.ops.compiled import KERNELS
 
-    cuda_seed.launches = 0
-    cuda_extend.launches = 0
+    for mod, counter in KERNELS.values():
+        setattr(mod, counter, 0)
 
 
 def _counters() -> dict:
-    from parasuite_tpu_torch.ops import cuda_extend, cuda_seed
+    from parasuite_tpu_torch.ops.compiled import launch_counts
 
-    return {"select_candidates": cuda_seed.launches,
-            "extend_candidates": cuda_extend.launches}
+    return launch_counts()
 
 
 def _expect_launches(got: dict, want: int, what: str) -> None:
-    if any(v != want for v in got.values()):
+    """The main path's launches: `want` of the seeded select kernel and of
+    the extend kernel, none of the select kernel over rows of diagonals."""
+    if (got["seed_select"], got["extend_candidates"],
+            got["select_candidates"]) != (want, want, 0):
         raise AssertionError(f"{what}: kernel launches {got}, want {want} "
-                             f"each (batches x passes)")
+                             f"of seed_select and extend_candidates each "
+                             f"(batches x passes), 0 of select_candidates")
 
 
 def pinned_twopass() -> None:
@@ -2391,7 +2419,7 @@ def wire_phase(gpu: str) -> dict:
     # (e) what a step (and its fetch) puts on the device
     launches = {name: _ops_of(steps[name]) for name in steps}
     for name, want in (("wire", 1), ("unpacked", 1)):
-        if (launches[name]["select_candidates"],
+        if (launches[name]["seed_select"],
                 launches[name]["extend_candidates"]) != (want, want):
             raise AssertionError(f"wire: {name} launches {launches[name]}")
     # (f) "jnp" on the card = "auto", field by field, on 4,096 reads
@@ -2403,9 +2431,8 @@ def wire_phase(gpu: str) -> dict:
         outs[impl] = packed_host(align_batch_packed(
             engine.didx, engine.sprof, *engine._upload_wire(*small),
             engine._ms_table, c))
-        n_launch = _counters()
-        if any(v != (1 if impl == "auto" else 0) for v in n_launch.values()):
-            raise AssertionError(f"wire: {impl} launched {n_launch}")
+        _expect_launches(_counters(), 1 if impl == "auto" else 0,
+                         f"wire: {impl}")
     _host_equal(outs["auto"], outs["jnp"], "wire: jnp vs auto on the card")
     del engine
     torch.cuda.empty_cache()
@@ -2693,7 +2720,7 @@ def graph_phase(gpu: str) -> dict:
         for mode, e in engines.items() for suffix in ("", "_counts")}
     for name, want in (("graphed", (1, 1, 1)), ("eager", (1, 1, 0))):
         got = per_step[name]
-        if (got["select_candidates"], got["extend_candidates"],
+        if (got["seed_select"], got["extend_candidates"],
                 got["graph_launches"]) != want:
             raise AssertionError(f"graph: {name} step put {got}")
     wire = {mode: e._upload_wire(codes, lens) for mode, e in engines.items()}
@@ -2861,7 +2888,7 @@ def _multi_in_turns(label: str, routes: dict, batches: list,
                 for mode, call in routes.items()}
     for mode, graphs in (("graphed", n_graphs), ("eager", 0)):
         got = per_step[mode]
-        if (got["select_candidates"], got["extend_candidates"],
+        if (got["seed_select"], got["extend_candidates"],
                 got["graph_launches"]) != (per_call, per_call, graphs):
             raise AssertionError(f"dist_graph {label}: {mode} call put {got}")
     times = {f"{m}_{what}": [] for m in routes

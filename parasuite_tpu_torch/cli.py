@@ -404,13 +404,6 @@ def cmd_cluster(args) -> int:
     return 0
 
 
-def _launch_counts() -> dict:
-    from parasuite_tpu_torch.ops import cuda_extend, cuda_seed
-
-    return {"select_candidates": cuda_seed.launches,
-            "extend_candidates": cuda_extend.launches}
-
-
 def cmd_dist_align(args) -> int:
     """One host's shard of a multi-host run.
 
@@ -433,6 +426,7 @@ def cmd_dist_align(args) -> int:
             return 2
         import torch.distributed as dist
 
+        from parasuite_tpu_torch.ops.compiled import launch_counts
         from parasuite_tpu_torch.parallel.distributed import (
             initialize, run_distributed_host)
 
@@ -447,7 +441,7 @@ def cmd_dist_align(args) -> int:
                           "n_hosts": args.num_processes, "records": n,
                           "profiled": n_prof, "mode": "torch.distributed",
                           "backend": backend, "device": str(engine.device),
-                          "launches": _launch_counts(),
+                          "launches": launch_counts(),
                           "seconds": round(secs, 3),
                           "reads_per_second": round(n / max(secs, 1e-9), 1)}))
         return 0

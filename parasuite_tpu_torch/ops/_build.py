@@ -148,6 +148,8 @@ def load() -> ctypes.CDLL:
     lib.ps_select_candidates.restype = i32
     lib.ps_select_candidates.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr,
                                          ptr]
+    lib.ps_seed_select.restype = i32
+    lib.ps_seed_select.argtypes = [ptr] * 4 + [i32] * 9 + [ptr] * 3
     lib.ps_extend_candidates.restype = i32
     lib.ps_extend_candidates.argtypes = [ptr] * 6 + [i32] * 7 + [ptr] * 5
     lib.ps_extend_occupancy.restype = i32

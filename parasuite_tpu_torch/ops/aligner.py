@@ -25,10 +25,14 @@ parasuite_tpu/ops/packed_ref.py is not ported: the reference recomputes its
 window is one byte gather of ref_seq and the extension kernel copies its
 windows raw, so the words would be used by nothing.
 
-Candidate selection and extension go through resolve_select_fn and
-resolve_extend_fn (cfg.select_impl / cfg.extend_impl): by default the
-wrappers in cuda_seed.py and cuda_extend.py, which launch the Hopper kernels
-for CUDA tensors and take the plain PyTorch versions for CPU tensors.
+Seeding with candidate selection, and extension, go through
+resolve_select_fn and resolve_extend_fn (cfg.select_impl /
+cfg.extend_impl): by default the wrappers in cuda_seed.py and
+cuda_extend.py, which launch the Hopper kernels for CUDA tensors and take
+the plain PyTorch versions for CPU tensors. The select kernel reads the
+oriented reads and the k-mer index and builds each row of seed diagonals
+itself, so the step never holds the rows (seed_diagonals runs only in the
+plain version).
 Nothing here synchronises with the device, so a caller can keep several
 batches in flight.
 """
@@ -43,8 +47,8 @@ import torch
 from parasuite_tpu_torch.config import AlignConfig
 from parasuite_tpu_torch.ops.cuda_extend import (NEG, extend_candidates,
                                                  extend_candidates_plain)
-from parasuite_tpu_torch.ops.cuda_seed import (I32MAX, select_candidates,
-                                               select_candidates_plain)
+from parasuite_tpu_torch.ops.cuda_seed import (  # noqa: F401
+    I32MAX, seed_diagonals, seed_select, seed_select_plain)
 from parasuite_tpu_torch.ops.device_index import DeviceIndex, ScoreParams
 
 class AlignResult(NamedTuple):
@@ -94,62 +98,11 @@ def orient_reads(codes: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# stage 2: seeding
+# stages 2-3: seeding and candidate selection
 # ---------------------------------------------------------------------------
 
-def seed_diagonals(oriented: torch.Tensor, lengths: torch.Tensor,
-                   didx: DeviceIndex, cfg: AlignConfig) -> torch.Tensor:
-    """[B, 2, L] -> candidate diagonals int32 [B*2, max_seeds*max_occ]
-    (I32MAX = invalid). Seeds sit at offsets s * seed_stride_for(len) per
-    read (adaptive) or s * stride (fixed); k-mers containing N, absent from
-    the index, or with more than max_occ occurrences are skipped."""
-    B, _, L = oriented.shape
-    dev = oriented.device
-    k, S, M = cfg.kmer_size, cfg.max_seeds, cfg.max_occ
-    reads2 = oriented.reshape(B * 2, L)
-    len2 = repeat_each(lengths, 2)
-    # 4^(k-1-q) for q < k, from arange on the device (no host data)
-    pow4 = torch.ones(k, dtype=torch.int32, device=dev) << (
-        2 * torch.arange(k - 1, -1, -1, dtype=torch.int32, device=dev))
-    j = torch.arange(M, dtype=torch.int32, device=dev)
-    n_pos = didx.positions.shape[0]
-
-    adaptive = cfg.seed_placement == "adaptive" and S > 1
-    if adaptive:
-        stride2 = torch.clamp(
-            torch.div(len2 - k, S - 1, rounding_mode="floor"), min=1)
-        r32 = torch.nn.functional.pad(reads2, (0, k), value=4)
-        code_all = torch.zeros_like(reads2)
-        nflag_all = torch.zeros_like(reads2, dtype=torch.bool)
-        for q in range(k):
-            c = r32[:, q : q + L]
-            nflag_all = nflag_all | (c == 4)
-            code_all = code_all + torch.where(c == 4, 0, c) * pow4[q]
-
-    chunks = []
-    for s in range(S):
-        if adaptive:
-            off = torch.clamp(s * stride2, max=L - 1)
-            oc = off[:, None].long()
-            code = code_all.gather(1, oc)[:, 0]
-            has_n = nflag_all.gather(1, oc)[:, 0]
-        else:
-            off = s * cfg.stride
-            win = reads2[:, off : off + k]
-            has_n = (win == 4).any(dim=1)
-            code = (torch.where(win == 4, 0, win) * pow4[None, :]).sum(
-                dim=1, dtype=torch.int32)
-        fits = (off + k) <= len2
-        code = torch.where(has_n, 0, code).long()
-        lo = didx.bucket_starts[code]
-        cnt = didx.bucket_starts[code + 1] - lo
-        ok = fits & ~has_n & (cnt > 0) & (cnt <= M)
-        valid = ok[:, None] & (j[None, :] < cnt[:, None])
-        idx = torch.clamp(lo[:, None] + j[None, :], 0, max(n_pos - 1, 0))
-        pos = didx.positions[idx.long()]
-        off_b = off[:, None] if adaptive else off
-        chunks.append(torch.where(valid, pos - off_b, I32MAX))
-    return torch.cat(chunks, dim=1)
+# cuda_seed.py: seed_diagonals makes the rows of diagonals that
+# select_candidates ranks; on the card one kernel does both (seed_select).
 
 
 # ---------------------------------------------------------------------------
@@ -391,19 +344,23 @@ def resolve_extend_fn(cfg: AlignConfig):
 
 
 def resolve_select_fn(cfg: AlignConfig):
-    """cfg.select_impl -> the candidate-select stage (see _resolve)."""
-    return _resolve(cfg.select_impl, "select_impl", select_candidates,
-                    select_candidates_plain)
+    """cfg.select_impl -> the seed-and-select stage, (oriented, lengths,
+    didx, cfg) -> (cand_diag, cand_valid) (see _resolve): the kernel reads
+    each oriented read's codes and the k-mer index and builds its row of
+    diagonals itself (cuda_seed.seed_select); the plain version is
+    seed_diagonals, then select_candidates_plain."""
+    return _resolve(cfg.select_impl, "select_impl", seed_select,
+                    seed_select_plain)
 
 
 def _extend_stages(didx: DeviceIndex, sprof: ScoreParams,
                    codes: torch.Tensor, lengths: torch.Tensor,
                    cfg: AlignConfig):
-    """orient -> seed -> select -> extend:
+    """orient -> seed and select -> extend:
     (oriented, cand_diag, cand_valid, (dp_score, dp_j, ug_score, ug_j))."""
     oriented = orient_reads(codes, lengths)
-    diags = seed_diagonals(oriented, lengths, didx, cfg)
-    cand_diag, cand_valid = resolve_select_fn(cfg)(diags, cfg)
+    cand_diag, cand_valid = resolve_select_fn(cfg)(oriented, lengths, didx,
+                                                   cfg)
     ext = resolve_extend_fn(cfg)(oriented, lengths, cand_diag, didx, sprof,
                                  cfg)
     return oriented, cand_diag, cand_valid, ext

@@ -27,8 +27,10 @@ copies enqueued op by op from Python:
     lie at replay time. They are updated in place, never rebound
     (AlignerEngine.set_profile copies pass 2's scores into pass 1's);
   * launch counts: a replay runs no Python, so the launches of the kernel
-    wrappers (cuda_seed.launches, cuda_extend.launches) that a graph holds
-    are counted at capture and added to the counters on every replay;
+    wrappers (KERNELS: cuda_seed.seeded_launches, cuda_seed.launches,
+    cuda_extend.launches) that a graph holds are counted at capture and
+    added to the counters on every replay; a step's graph holds one seeded
+    select launch and no launch from rows of diagonals;
   * no eager fallback on CUDA: a capture that fails raises, naming the step,
     its device and the key;
   * the step's device: warm-up, capture and replay run with it as the
@@ -56,12 +58,22 @@ from torch.utils import _pytree as pytree
 from parasuite_tpu_torch.ops import cuda_extend, cuda_seed
 from parasuite_tpu_torch.utils.runlog import count, span
 
-# the launch counters of the kernel wrappers, by kernel name
-KERNELS = {"select_candidates": cuda_seed, "extend_candidates": cuda_extend}
+# the launch counters of the kernel wrappers, by kernel name: (module,
+# counter); the select kernel counts its two row sources apart
+KERNELS = {"seed_select": (cuda_seed, "seeded_launches"),
+           "select_candidates": (cuda_seed, "launches"),
+           "extend_candidates": (cuda_extend, "launches")}
 
 
-def _launch_counts() -> dict:
-    return {name: mod.launches for name, mod in KERNELS.items()}
+def launch_counts() -> dict:
+    """{kernel name: launches so far} of every wrapper in KERNELS."""
+    return {name: getattr(*where) for name, where in KERNELS.items()}
+
+
+def _add_launches(counts: dict) -> None:
+    for name, n in counts.items():
+        mod, counter = KERNELS[name]
+        setattr(mod, counter, getattr(mod, counter) + n)
 
 
 class _Entry:
@@ -133,8 +145,7 @@ class CompiledStep:
             else:
                 with torch.cuda.device(self.device):
                     entry.graph.replay()
-                for name, n in entry.held.items():
-                    KERNELS[name].launches += n
+                _add_launches(entry.held)
             return pytree.tree_unflatten([x.clone() for x in entry.outputs],
                                          entry.spec)
 
@@ -162,7 +173,7 @@ class CompiledStep:
             if isinstance(x, torch.Tensor):
                 x.record_stream(cur)
         torch.cuda.synchronize(self.device)
-        before = _launch_counts()
+        before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
@@ -182,10 +193,9 @@ class CompiledStep:
         finally:
             # the capture launched nothing: its wrapper counts are the
             # graph's, added back on every replay
-            entry.held = {k: v - before[k]
-                          for k, v in _launch_counts().items()}
-            for name, n in before.items():
-                KERNELS[name].launches = n
+            after = launch_counts()
+            entry.held = {k: v - before[k] for k, v in after.items()}
+            _add_launches({k: -n for k, n in entry.held.items()})
         entry.capture_ms = 1e3 * (time.perf_counter() - t0)
         entry.outputs, entry.spec = pytree.tree_flatten(captured)
         entry.graph = graph

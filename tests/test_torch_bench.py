@@ -188,7 +188,7 @@ def test_distributed_tool_two_processes_equal_one(tmp_path):
     assert len(line["rounds_1proc"]) == 1 + line["remeasure_rounds"]
     assert line["same_output"]
     assert line["sam_sha256_1proc"] == line["sam_sha256_2proc"]
-    assert line["launches"] == {"select_candidates": 0,
+    assert line["launches"] == {"seed_select": 0, "select_candidates": 0,
                                 "extend_candidates": 0}   # plain on the CPU
     assert list(tmp_path.iterdir()) == []                 # its world is gone
 

@@ -1,7 +1,10 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version (the extend kernel at every band width it is built for, on
 testing.extend_case's edge cases, and on one 65,536-read batch at the bench
-config; its SASS holds the DPX instructions at every width); align_batch,
+config; its SASS holds the DPX instructions at every width; the seeded
+select kernel against seed_diagonals + select_candidates_plain at every
+row width and placement, and one eager 65,536-read step's memory);
+align_batch,
 align_batch_with_candidates, the wire step align_batch_packed (with its
 fused counts), a rescue engine and CombinedEngine on the card against the
 same run on CPU tensors; extend_impl / select_impl "jnp" (the plain
@@ -10,9 +13,10 @@ data-parallel step and the chromosome-sharded step on the card (one card
 given twice, so each kernel launches twice a call) against the same steps
 on CPU devices; the wrappers' refusals; every compiled step of both engines
 (ops/compiled.py: a CUDA graph a key, replayed) against its function run
-eagerly, with nine results held in flight, the launch counts of replays,
-and a step that syncs raising at capture. Every test needs an NVIDIA GPU
-and skips elsewhere.
+eagerly, with nine results held in flight, the launch counts of replays
+(one seeded select launch a step, none over rows of diagonals), and a step
+that syncs raising at capture. Every test needs an NVIDIA GPU and skips
+elsewhere.
 
 This file imports no jax, so it also runs on a machine with a card and no
 JAX installed (PARASUITE_TEST_TPU=1 keeps conftest.py from importing jax):
@@ -98,6 +102,22 @@ def _to(obj, dev):
                         for f in obj.__dataclass_fields__})
 
 
+def _launches() -> tuple:
+    """(seeded select, select over rows of diagonals, extend) launches so
+    far."""
+    return (cuda_seed.seeded_launches, cuda_seed.launches,
+            cuda_extend.launches)
+
+
+def _since(before: tuple) -> tuple:
+    return tuple(a - b for a, b in zip(_launches(), before))
+
+
+# a step's graph or eager call: one seeded select, one extend
+STEP = {"seed_select": 1, "select_candidates": 0, "extend_candidates": 1}
+NONE = {"seed_select": 0, "select_candidates": 0, "extend_candidates": 0}
+
+
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_kernels_equal_plain_on_card(cuda, name, tiny_ref):
     """Each kernel is array-equal to its plain version on the same CUDA
@@ -167,11 +187,11 @@ def test_extend_kernel_equals_plain_at_every_band_width(cuda, W, L):
         assert g.dtype == w.dtype and torch.equal(g, w), name
 
 
-def test_extend_kernel_equals_plain_on_a_bench_batch(cuda):
-    """One 65,536-read batch at the bench config (L = 50, k = 12, C = 8,
-    W = 5) on a 2 Mbp random reference: reads with substitutions and 1%
-    deletions, half reverse strand, 256 all-N; candidates by the select
-    kernel; tolerance 0."""
+def _bench_batch(cuda):
+    """One 65,536-read batch at the bench config (L = 50, k = 12, 7 seeds x
+    16 occurrences, C = 8, W = 5) on a 2 Mbp random reference: reads with
+    substitutions and 1% deletions, half reverse strand, 256 all-N ->
+    (cfg, DeviceIndex, ScoreParams, codes int8, lengths), on the card."""
     cfg = AlignConfig(max_read_len=50, kmer_size=12, batch_size=65_536,
                       max_candidates=8, max_occ=16)
     rng = np.random.default_rng(65_536)
@@ -191,8 +211,15 @@ def test_extend_kernel_equals_plain_on_a_bench_batch(cuda):
     didx = DeviceIndex.from_host(ref, KmerIndex.build(ref.seq, 12), cuda)
     sprof = ScoreParams.from_tensor(flat_score_tensor(cfg, L), cfg, cuda)
     lens = torch.full((n,), L, dtype=torch.int32, device=cuda)
-    oriented = tx.orient_reads(torch.from_numpy(reads.astype(np.int8))
-                               .to(cuda), lens)
+    codes = torch.from_numpy(reads.astype(np.int8)).to(cuda)
+    return cfg, didx, sprof, codes, lens
+
+
+def test_extend_kernel_equals_plain_on_a_bench_batch(cuda):
+    """One 65,536-read batch at the bench config (_bench_batch);
+    candidates by the select kernel; tolerance 0."""
+    cfg, didx, sprof, codes, lens = _bench_batch(cuda)
+    oriented = tx.orient_reads(codes, lens)
     diags = tx.seed_diagonals(oriented, lens, didx, cfg)
     cand, _ = cuda_seed.select_candidates(diags, cfg)
     got = cuda_extend.extend_candidates(oriented, lens, cand, didx, sprof,
@@ -203,6 +230,114 @@ def test_extend_kernel_equals_plain_on_a_bench_batch(cuda):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int((got[0] > got[2]).sum()) > 0     # gapped winners exist
+
+
+# the peak above what was allocated before it of one eager align_batch of
+# _bench_batch's 65,536 reads, in bytes, on an NVIDIA H100 80GB HBM3
+# (PERF.md section 5): finalize's, as the seed rows never exist in the step.
+# The caching allocator's bytes depend on the shapes alone, so they repeat
+# across cards.
+STEP_PEAK_65536 = 180_483_584
+
+
+def test_an_eager_bench_step_stays_within_its_memory(cuda):
+    """One eager align_batch at 65,536 reads peaks, above what was
+    allocated before it, at no more than STEP_PEAK_65536 = 180,483,584 B
+    (measured on an H100 for PERF.md section 5) plus 5%: a step that holds
+    the [2B, S * M] seed rows again (56 MiB, and their chunks) does not
+    fit."""
+    cfg, didx, sprof, codes, lens = _bench_batch(cuda)
+    ms = torch.from_numpy(min_scores_host(lens.cpu().numpy(), cfg)).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res = tx.align_batch(didx, sprof, codes, lens, ms, cfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak <= 1.05 * STEP_PEAK_65536, f"peak above the step: {peak} B"
+    assert int(res.mapped.sum()) > 60_000
+
+
+# (L, k, max_seeds, max_occ, max_candidates, placement, seed_stride): every
+# row width the kernel is built for, both placements, the rescue tier's k
+SEEDED = {
+    "bench_adaptive": (50, 12, 7, 16, 8, "adaptive", 6),     # n_pad 128
+    "bench_fixed": (50, 12, 7, 16, 8, "fixed", 6),
+    "rescue_k6": (36, 6, 13, 16, 8, "adaptive", 6),          # 256
+    "one_seed": (50, 8, 1, 32, 8, "adaptive", 6),            # 32
+    "n64": (50, 8, 4, 16, 8, "fixed", 12),                   # 64
+    "seeds_over_32": (100, 8, 40, 8, 8, "adaptive", 6),      # 512
+    "n1024": (100, 8, 16, 64, 16, "adaptive", 6),            # 1,024
+    "wide_n1088": (100, 8, 17, 64, 16, "adaptive", 6),       # 2,048
+    "wide_fixed_n3840": (100, 8, 30, 128, 8, "fixed", 3),    # 4,096
+    "wide_over_256": (100, 6, 300, 8, 8, "adaptive", 6),     # 4,096
+    "L250": (250, 8, 7, 32, 16, "adaptive", 6),              # 256
+}
+
+
+def _seeded_case(name, cuda, n=96):
+    """SEEDED[name] -> (cfg, DeviceIndex on the card, oriented, lengths).
+
+    A 20 kbp random reference with a 2,100 bp tandem repeat of a 7 bp unit
+    (seeds with more than max_occ occurrences; mutated seeds find none);
+    mutated reads with indels, one from the repeat and one half in it, an
+    all-N read, a read of length 0, one shorter than k, one a little
+    longer than k (the adaptive offsets pile up at its end), an N-padded
+    short read and one with an N inside."""
+    L, k, S, M, C, placement, stride = SEEDED[name]
+    cfg = AlignConfig(max_read_len=L, batch_size=n, kmer_size=k,
+                      max_seeds=S, max_occ=M, max_candidates=C,
+                      seed_placement=placement, seed_stride=stride,
+                      band_width=3, chrom_spacer=L + 64)
+    rng = np.random.default_rng(2400 + len(name))
+    seq = rng.integers(0, 4, 20_000).astype(np.int8)
+    seq[5000:7100] = np.tile(rng.integers(0, 4, 7), 300)
+    ref = PackedReference.from_dict({"c": seq}, spacer=cfg.chrom_spacer)
+    codes, lengths, _ = sample_reads(rng, ref, n, L, mutate=2, indel=True)
+    st = int(ref.starts[0]) + 5100
+    codes[0] = ref.seq[st:st + L]
+    codes[1, : L // 2] = ref.seq[st:st + L // 2]
+    codes[2] = 4
+    lengths[3] = 0
+    codes[3] = 4
+    for row, ln in ((4, k - 1), (5, k + 3), (6, L - 7)):
+        lengths[row] = ln
+        codes[row, ln:] = 4
+    codes[7, L // 3] = 4
+    didx = DeviceIndex.from_host(ref, KmerIndex.build(ref.seq, k), cuda)
+    tlens = torch.from_numpy(lengths).to(cuda)
+    oriented = tx.orient_reads(torch.from_numpy(codes).to(cuda), tlens)
+    return cfg, didx, oriented, tlens
+
+
+@pytest.mark.parametrize("name", list(SEEDED))
+def test_seeded_select_equals_the_plain_pair_on_card(cuda, name):
+    """seed_select's one launch (the kernel builds each row from the reads
+    and the index) equals select_candidates_plain over seed_diagonals' rows
+    on the same CUDA tensors, bit for bit in cand_diag and cand_valid, and
+    launches nothing over rows of diagonals."""
+    cfg, didx, oriented, tlens = _seeded_case(name, cuda)
+    before = _launches()
+    got = cuda_seed.seed_select(oriented, tlens, didx, cfg)
+    assert _since(before) == (1, 0, 0)
+    diags = cuda_seed.seed_diagonals(oriented, tlens, didx, cfg)
+    want = cuda_seed.select_candidates_plain(diags, cfg)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool(got[1].any()) and not bool(got[1].all())
+    assert bool((diags[4:6] == cuda_seed.I32MAX).all())   # the all-N read
+    assert bool((diags[0] == cuda_seed.I32MAX).all())     # over max_occ
+
+
+def test_seeded_select_of_no_reads_on_card(cuda):
+    """No reads: empty [0, C] outputs and no launch."""
+    cfg, didx, oriented, tlens = _seeded_case("bench_adaptive", cuda)
+    before = _launches()
+    cand, valid = cuda_seed.seed_select(oriented[:0], tlens[:0], didx, cfg)
+    assert _since(before) == (0, 0, 0)
+    assert cand.shape == valid.shape == (0, cfg.max_candidates)
+    assert (cand.dtype, valid.dtype) == (torch.int32, torch.bool)
 
 
 def test_extend_kernel_uses_dpx_at_every_band_width(cuda):
@@ -269,7 +404,8 @@ def _wire(cfg, codes, lengths, dev):
 @pytest.mark.parametrize("name", ["bench_L50_W5", "band15_n448"])
 def test_wire_step_on_card_equals_cpu(cuda, name, tiny_ref):
     """align_batch_packed on the card: the PackedResult bytes and the fused
-    counts equal the CPU run's, one launch of each kernel a step, and the
+    counts equal the CPU run's, one launch of the seeded select kernel and
+    one of the extend kernel a step, and the
     unpacked result equals align_batch on the card field by field."""
     from parasuite_tpu_torch.pipeline.align import fetch_host
 
@@ -278,12 +414,11 @@ def test_wire_step_on_card_equals_cpu(cuda, name, tiny_ref):
                                                     "cpu"), cfg,
                                 with_counts=True)
     d_didx, d_sprof = _to(didx, cuda), _to(sprof, cuda)
-    n_sel, n_ext = cuda_seed.launches, cuda_extend.launches
+    before = _launches()
     card = tx.align_batch_packed(d_didx, d_sprof,
                                  *_wire(cfg, codes, lengths, cuda), cfg,
                                  with_counts=True)
-    assert (cuda_seed.launches, cuda_extend.launches) == (n_sel + 1,
-                                                         n_ext + 1)
+    assert _since(before) == (1, 0, 1)
     (c_host,), (g_host,) = fetch_host(cpu[0]), fetch_host(card[0])
     for c, g in zip(c_host, g_host):
         assert c.tobytes() == g.tobytes()
@@ -311,12 +446,11 @@ def test_impl_switches_on_card(cuda, name, tiny_ref):
     outs = {}
     for impl in ("auto", "jnp", "pallas"):
         c = cfg.replace(extend_impl=impl, select_impl=impl)
-        n_sel, n_ext = cuda_seed.launches, cuda_extend.launches
+        before = _launches()
         (outs[impl],) = fetch_host(tx.align_batch_packed(d_didx, d_sprof,
                                                          *wire, c))
         want = 0 if impl == "jnp" else 1
-        assert (cuda_seed.launches - n_sel,
-                cuda_extend.launches - n_ext) == (want, want), impl
+        assert _since(before) == (want, 0, want), impl
     for impl in ("jnp", "pallas"):
         for a, b in zip(outs["auto"], outs[impl]):
             assert a.tobytes() == b.tobytes(), impl
@@ -456,10 +590,9 @@ def test_dist_step_on_card_equals_cpu(cuda, n_replicas, tiny_ref):
     step = make_dist_align_step(cfg, make_mesh(devices=[card0] * n_replicas))
     on_card = (_to(didx, card0), _to(sprof, card0))
     for _ in range(2):     # the second call finds its replicas in place
-        n_sel, n_ext = cuda_seed.launches, cuda_extend.launches
+        before = _launches()
         got, counts = step(*on_card, codes, lengths, ms)
-        assert (cuda_seed.launches - n_sel, cuda_extend.launches - n_ext) \
-            == (n_replicas, n_replicas)
+        assert _since(before) == (n_replicas, 0, n_replicas)
         assert counts.dtype == torch.int64 and counts.device == card0
         assert torch.equal(counts.cpu(), want_counts)
         for field in want._fields:
@@ -495,13 +628,12 @@ def test_sharded_step_on_card_equals_cpu(cuda):
     outs = {}
     for dev in ("cpu", card0):
         step = make_sharded_step(cfg, make_mesh2(1, 2, devices=[dev] * 2))
-        n_sel, n_ext = cuda_seed.launches, cuda_extend.launches
+        before = _launches()
         outs[dev] = step(sharded.slabs(cfg), sharded.orig_chrom,
                          ScoreParams.from_tensor(s, cfg, dev), codes,
                          lengths, ms)
         want = 0 if dev == "cpu" else 2
-        assert (cuda_seed.launches - n_sel, cuda_extend.launches - n_ext) \
-            == (want, want)
+        assert _since(before) == (want, 0, want)
     for k, w in outs["cpu"].items():
         g = outs[card0][k]
         assert g.device == card0 and g.dtype == w.dtype, k
@@ -526,6 +658,20 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(cuda, tiny_ref):
     with pytest.raises(ValueError, match="widest row"):
         cuda_seed.select_candidates(diags.repeat(1, 37), cfg)
     cand, _ = cuda_seed.select_candidates(diags, cfg)
+    with pytest.raises(ValueError, match="int32 \\[B, 2, L\\]"):
+        cuda_seed.seed_select(oriented.long(), tlens, didx, cfg)
+    with pytest.raises(ValueError, match="lengths must be int32"):
+        cuda_seed.seed_select(oriented, tlens.long(), didx, cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_seed.seed_select(oriented.transpose(0, 1).contiguous()
+                              .transpose(0, 1), tlens, didx, cfg)
+    with pytest.raises(ValueError, match="different devices"):
+        cuda_seed.seed_select(oriented, tlens.cpu(), didx, cfg)
+    with pytest.raises(ValueError, match="bucket_starts"):
+        cuda_seed.seed_select(oriented, tlens, didx, cfg.replace(kmer_size=11))
+    with pytest.raises(ValueError, match="widest row"):
+        cuda_seed.seed_select(oriented, tlens, didx,
+                              cfg.replace(max_occ=cfg.max_occ * 37))
     with pytest.raises(ValueError, match="lengths int32"):
         cuda_extend.extend_candidates(oriented, tlens.long(), cand, didx,
                                       sprof, cfg)
@@ -611,9 +757,7 @@ def test_graphed_steps_equal_eager_on_card(cuda, kind, port_ref):
     torch.cuda.synchronize()
     assert len(both.pairs) == 10 and both.step.graphs == 1
     (entry,) = both.step.entries.values()
-    assert entry.held == ({"select_candidates": 0, "extend_candidates": 0}
-                          if kind == "counts" else
-                          {"select_candidates": 1, "extend_candidates": 1})
+    assert entry.held == (NONE if kind == "counts" else STEP)
     for k, (got, want) in enumerate(both.pairs):
         for g, w in zip(tree_leaves(got), tree_leaves(want), strict=True):
             assert g.dtype == w.dtype and torch.equal(g, w), (kind, k)
@@ -621,15 +765,19 @@ def test_graphed_steps_equal_eager_on_card(cuda, kind, port_ref):
 
 def test_replays_count_their_launches(cuda, port_ref):
     """The first call of a key (its eager warm-up) and every replay add one
-    launch of each kernel; the capture adds none."""
+    launch of the seeded select kernel and one of the extend kernel, and
+    none of the select kernel over rows of diagonals; the capture adds none.
+    The graph holds one seeded launch and no row launch: engagement
+    seeded / (seeded + rows) is 1."""
     eng, _tier, _name, run, batches = _graph_case("packed", port_ref)
-    n_sel, n_ext = cuda_seed.launches, cuda_extend.launches
+    before = _launches()
     for k, b in enumerate(batches[:4]):
         run(*b)
-        assert (cuda_seed.launches - n_sel, cuda_extend.launches - n_ext) \
-            == (k + 1, k + 1)
+        assert _since(before) == (k + 1, 0, k + 1)
     step = eng.compiled_steps()["packed k=8"]
     assert step.graphs == 1 and step.capture_ms > 0
+    (entry,) = step.entries.values()
+    assert entry.held == STEP
 
 
 def test_a_step_that_syncs_raises_at_capture(cuda):
@@ -746,9 +894,8 @@ def test_graphed_multi_device_steps_equal_eager_on_card(cuda, kind,
     for spy in spies:
         assert len(spy.pairs) == 9 and spy.step.graphs == 1, spy.step.name
         (entry,) = spy.step.entries.values()
-        want = 0 if spy.step.name.startswith("merge") else 1
-        assert entry.held == {"select_candidates": want,
-                              "extend_candidates": want}, spy.step.name
+        want = NONE if spy.step.name.startswith("merge") else STEP
+        assert entry.held == want, spy.step.name
         for k, (got, eager) in enumerate(spy.pairs):
             for g, w in zip(tree_leaves(got), tree_leaves(eager),
                             strict=True):
@@ -759,15 +906,15 @@ def test_graphed_multi_device_steps_equal_eager_on_card(cuda, kind,
 @pytest.mark.parametrize("kind", ["counts", "sharded"])
 def test_multi_device_replays_count_their_launches(cuda, kind, tiny_ref):
     """Card 0 given twice: the first call (each slot's eager warm-up) and
-    every replay add two launches of each kernel, one a slot; the captures
-    add none, and each slot holds one graph."""
+    every replay add two launches of the seeded select kernel and of the
+    extend kernel, one a slot; the captures add none, and each slot holds
+    one graph."""
     card0 = torch.device("cuda", 0)
     step, call, batches, _sprof = _multi_step(kind, [card0] * 2, tiny_ref)
-    n_sel, n_ext = cuda_seed.launches, cuda_extend.launches
+    before = _launches()
     for k, b in enumerate(batches[:4]):
         call(*b)
-        assert (cuda_seed.launches - n_sel, cuda_extend.launches - n_ext) \
-            == (2 * (k + 1), 2 * (k + 1))
+        assert _since(before) == (2 * (k + 1), 0, 2 * (k + 1))
     steps = step.compiled_steps()
     assert len(steps) == (3 if kind == "sharded" else 2)
     assert all(s.graphs == 1 and s.capture_ms > 0 for s in steps.values())

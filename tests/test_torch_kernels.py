@@ -179,3 +179,198 @@ def test_import_does_not_build():
     assert [q.name for q in _build._sources()] == [
         "extend_candidates.cu", "select_candidates.cu"]
 
+
+
+# ---------------------------------------------------------------------------
+# seed and select in one kernel (cuda_seed.seed_select)
+# ---------------------------------------------------------------------------
+
+def _seed_world(L: int, k: int, seed: int, n: int = 24):
+    """A 6 kbp random reference with a 700 bp tandem repeat of a 7 bp unit
+    (k-mers with 0 and with more than max_occ occurrences) -> (JAX and port
+    DeviceIndex, codes, lengths): mutated reads with indels, some from the
+    repeat, an all-N read, a read of length 0, one shorter than k, one
+    N-padded short read and one with an N inside."""
+    rng = np.random.default_rng(seed)
+    seq = rng.integers(0, 4, 6000).astype(np.int8)
+    seq[2000:2700] = np.tile(rng.integers(0, 4, 7), 100)
+    ref = PackedReference.from_dict({"c": seq}, spacer=L + 40)
+    jd = JDeviceIndex.from_host(ref, KmerIndex.build(ref.seq, k))
+    td = DeviceIndex.from_numpy(*(np.asarray(getattr(jd, f))
+                                  for f in jd._fields), device="cpu")
+    codes, lengths, _ = sample_reads(rng, ref, n, L, mutate=2, indel=True)
+    st = int(ref.starts[0]) + 2100
+    codes[0] = ref.seq[st:st + L]
+    codes[1, : L // 2] = ref.seq[st:st + L // 2]
+    codes[2] = 4
+    lengths[3] = 0
+    codes[3] = 4
+    lengths[4] = k - 1
+    codes[4, k - 1:] = 4
+    lengths[5] = L - 7
+    codes[5, L - 7:] = 4
+    codes[6, L // 3] = 4
+    return jd, td, codes, lengths
+
+
+SEED_CASES = {   # (L, k, max_seeds, max_occ, max_candidates, placement)
+    "adaptive": (24, 6, 4, 8, 2, "adaptive"),
+    "fixed": (24, 6, 4, 8, 2, "fixed"),
+    "rescue": (36, 6, 13, 16, 8, "adaptive"),   # the rescue tier's cfg
+    "one_seed": (24, 6, 1, 8, 2, "adaptive"),
+}
+
+
+@pytest.mark.parametrize("case", list(SEED_CASES))
+def test_seed_select_on_cpu_equals_the_plain_pair(case):
+    """On CPU tensors seed_select is select_candidates_plain over
+    seed_diagonals' rows, and both equal the JAX package's select over its
+    seed_diagonals; no kernel is built or counted."""
+    L, k, S, M, C, placement = SEED_CASES[case]
+    cfg = TINY.replace(max_read_len=L, kmer_size=k, max_seeds=S, max_occ=M,
+                       max_candidates=C, seed_placement=placement,
+                       seed_stride=6, chrom_spacer=L + 40)
+    if case == "rescue":   # the rescue tier AlignerEngine makes of a k = 8 run
+        primary = cfg.replace(kmer_size=8, max_seeds=7, rescue_kmer=6,
+                              rescue_seeds=13)
+        cfg = primary.replace(kmer_size=primary.rescue_kmer, rescue_kmer=0,
+                              max_seeds=max(primary.rescue_seeds,
+                                            primary.max_seeds))
+    t_cfg = convert.align_config(dataclasses.asdict(cfg))
+    jd, td, codes, lengths = _seed_world(L, k, 700 + len(case))
+    tlens = torch.from_numpy(lengths)
+    oriented = tx.orient_reads(torch.from_numpy(codes), tlens)
+    n_seeded, lib = cuda_seed.seeded_launches, _build._lib
+    got = cuda_seed.seed_select(oriented, tlens, td, t_cfg)
+    want = cuda_seed.select_candidates_plain(
+        cuda_seed.seed_diagonals(oriented, tlens, td, t_cfg), t_cfg)
+    j_or = jx.orient_reads(codes, lengths)
+    j_cand, j_valid = jx.select_candidates(
+        jx.seed_diagonals(j_or, lengths, jd, cfg), cfg)
+    for g, w, j in zip(got, want, (j_cand, j_valid)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(j))
+    assert got[1].any() and not got[1].all()
+    assert cuda_seed.seeded_launches == n_seeded and _build._lib is lib
+
+
+def test_seed_select_resolves_like_the_reference():
+    """select_impl "auto" is seed_select, "jnp" seed_select_plain, and
+    "pallas" raises on CPU tensors, as _kernel_only does."""
+    jd, td, codes, lengths = _seed_world(24, 6, 710)
+    tlens = torch.from_numpy(lengths)
+    oriented = tx.orient_reads(torch.from_numpy(codes), tlens)
+    assert tx.resolve_select_fn(T_TINY) is cuda_seed.seed_select
+    assert tx.resolve_select_fn(T_TINY.replace(select_impl="jnp")) is \
+        cuda_seed.seed_select_plain
+    pallas = tx.resolve_select_fn(T_TINY.replace(select_impl="pallas"))
+    with pytest.raises(ValueError, match="select_impl='pallas' needs the "
+                                         "CUDA kernel"):
+        pallas(oriented, tlens, td, T_TINY)
+
+
+def _trunc_div(a: int, b: int) -> int:
+    """C's integer division (toward zero)."""
+    q = abs(a) // b
+    return q if a >= 0 else -q
+
+
+def _seeded_row(read, length, cfg, bucket_starts, positions, n_pad):
+    """The row select_candidates.cu's SeedRows loads for one oriented read,
+    as the kernel indexes it: register path (n_pad <= 1,024) lane by lane
+    and register by register, 32 seeds a round handed over by shuffles;
+    wide path 256 seeds a round through shared scratch. -> int64 [n_pad]."""
+    L, k, S, M = cfg.max_read_len, cfg.kmer_size, cfg.max_seeds, cfg.max_occ
+    adaptive = cfg.seed_placement == "adaptive" and S > 1
+    st = max(_trunc_div(length - k, S - 1), 1) if adaptive else cfg.stride
+    n = S * M
+    I32 = int(cuda_seed.I32MAX)
+
+    def seed(s):
+        off = min(s * st, L - 1) if adaptive else s * st
+        if s >= S or off + k > length:
+            return 0, 0, off
+        code = 0
+        for q in range(k):
+            c = int(read[off + q]) if off + q < L else 4
+            if not 0 <= c <= 3:
+                return 0, 0, off
+            code = code * 4 + c
+        lo = int(bucket_starts[code])
+        cnt = int(bucket_starts[code + 1]) - lo
+        return lo, (cnt if 0 < cnt <= M else 0), off
+
+    row = np.full(n_pad, I32, dtype=np.int64)
+    if n_pad <= 1024:
+        E = n_pad // 32
+        v = np.full((32, E), I32, dtype=np.int64)     # [lane, register]
+        for g in range(-(-S // 32)):
+            made = [seed(g * 32 + lane) for lane in range(32)]
+            e0, e1 = g * 32 * M, min(g * 32 * M + 32 * M, n)
+            for r in range(E):
+                if r * 32 >= e1 or r * 32 + 32 <= e0:
+                    continue
+                for lane in range(32):
+                    e = r * 32 + lane
+                    sd = e // M
+                    j = e - sd * M
+                    lo, cnt, off = made[(sd - g * 32) & 31]
+                    if e0 <= e < e1 and j < cnt:
+                        v[lane, r] = int(positions[lo + j]) - off
+        return v.ravel()
+    T = 256
+    for g in range(-(-S // T)):
+        made = [seed(g * T + t) for t in range(T)]
+        e0, e1 = g * T * M, min(g * T * M + T * M, n)
+        for e in range(e0, e1):
+            sl = (e - e0) // M
+            j = (e - e0) - sl * M
+            lo, cnt, off = made[sl]
+            if j < cnt:
+                row[e] = int(positions[lo + j]) - off
+    return row
+
+
+EMULATED = {     # (L, k, max_seeds, max_occ, placement, stride): n_pad
+    "main": (50, 8, 7, 16, "adaptive", 6),          # 128, one round
+    "fixed": (50, 8, 7, 16, "fixed", 6),
+    "rescue": (36, 6, 13, 16, "adaptive", 6),       # 256
+    "one_seed": (50, 8, 1, 16, "adaptive", 6),      # 32
+    "seeds_over_32": (100, 8, 40, 8, "adaptive", 6),  # 512, two rounds
+    "wide": (100, 8, 17, 64, "adaptive", 6),        # 2,048, shared memory
+    "wide_fixed": (100, 8, 30, 128, "fixed", 3),    # 4,096
+    "wide_over_256": (100, 6, 300, 8, "adaptive", 6),  # 4,096, two rounds
+}
+
+
+@pytest.mark.parametrize("case", list(EMULATED))
+def test_seeded_rows_emulated_equal_seed_diagonals(case):
+    """The seeded kernel's row, indexed as the kernel indexes it (lanes,
+    registers, rounds of seeds, the shuffles' source lanes, the wide path's
+    scratch), holds the same diagonals as seed_diagonals' row padded with
+    I32MAX to the kernel's width: sorted, the two are equal, so the sort
+    network gives select_candidates' results."""
+    L, k, S, M, placement, stride = EMULATED[case]
+    cfg = T_TINY.replace(max_read_len=L, kmer_size=k, max_seeds=S,
+                         max_occ=M, max_candidates=2,
+                         seed_placement=placement, seed_stride=stride,
+                         chrom_spacer=L + 40)
+    _jd, td, codes, lengths = _seed_world(L, k, 720 + len(case), n=12)
+    tlens = torch.from_numpy(lengths)
+    oriented = tx.orient_reads(torch.from_numpy(codes), tlens)
+    rows = cuda_seed.seed_diagonals(oriented, tlens, td, cfg).numpy()
+    n_pad = cuda_seed._padded_width("test", S * M, cfg)
+    assert n_pad == {"main": 128, "fixed": 128, "rescue": 256,
+                     "one_seed": 32, "seeds_over_32": 512, "wide": 2048,
+                     "wide_fixed": 4096, "wide_over_256": 4096}[case]
+    flat = oriented.reshape(-1, L).numpy()
+    bs, pos = td.bucket_starts.numpy(), td.positions.numpy()
+    filled = 0
+    for r in range(flat.shape[0]):
+        got = _seeded_row(flat[r], int(lengths[r // 2]), cfg, bs, pos, n_pad)
+        want = np.full(n_pad, cuda_seed.I32MAX, dtype=np.int64)
+        want[: rows.shape[1]] = rows[r]
+        np.testing.assert_array_equal(np.sort(got), np.sort(want),
+                                      err_msg=f"row {r}")
+        filled += int((want != cuda_seed.I32MAX).sum())
+    assert filled > 0

@@ -283,7 +283,7 @@ def test_no_source_file_imports_jax():
     files = sorted((REPO / "parasuite_tpu_torch").rglob("*.py"))
     tools = sorted((REPO / "tools").glob("torch_*.py"))
     tools.append(REPO / "tools" / "_torch_bench.py")
-    assert len(tools) == 15
+    assert len(tools) == 16
     tools.append(REPO / "bench_torch.py")
     files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
               REPO / "tests" / "_torch_helpers.py", *tools]

@@ -388,3 +388,44 @@ def test_trace_cell_tool_on_a_tiny_cell(tmp_path, capsys):
     assert len(out["cost"]["off_reads_per_s"]) == 1
     assert len(out["cost"]["on_reads_per_s"]) == 1
     assert "median_on_over_off" in out["cost"]
+
+
+def test_step_memory_tool_on_a_tiny_cell(tmp_path, capsys):
+    """tools/torch_step_memory.py on a tiny copy of the parclip50 cell on
+    the CPU: the wire step cut at its stages, seed and select as one
+    (seed_select), each batch size's eager, staged and graphed record; no
+    byte is counted without a card, and the gpu field says cpu."""
+    import shutil
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_step_memory as tool
+
+    shutil.copytree(BENCH, tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("tests", "__pycache__"))
+    spec = json.loads((ROOT / "BENCHMARK.json").read_text())
+    conf = json.loads((BENCH / "configs" / "chr22_align.json").read_text())
+    conf["genome"].update(length=600_000, n_gap_lead=100_000,
+                          n_gap_internal=1, satellite_bases=2_000,
+                          segdup_blocks=1)
+    conf["genome"]["families"] = [[f[0], f[1], max(1, f[2] // 100), f[3],
+                                   f[4]] for f in conf["genome"]["families"]]
+    conf["align"]["batch_size"] = BATCH
+    conf["library_reads"] = N_READS
+    (tmp_path / "benchmark" / "configs" / "tiny.json").write_text(
+        json.dumps(conf))
+    spec["workloads"] = [{"name": "tiny.parclip50", "config": "tiny",
+                          "traffic": "parclip50", "chips": 1, "why": "t"}]
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    assert tool.main(["--workload", "tiny.parclip50", "--seed", str(SEED),
+                      "--batches", f"{BATCH},64", "--device", "cpu",
+                      "--bench", str(tmp_path / "benchmark")]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (out["device"], out["gpu"], out["engine_allocated"]) == \
+        ("cpu", "cpu", 0)
+    assert list(out["batches"]) == [str(BATCH), "64"]
+    for rec in out["batches"].values():
+        assert list(rec["stages"]) == ["unpack", "orient", "seed_select",
+                                       "extend", "finalize", "pack"]
+        assert rec["peak_stage"] in rec["stages"]
+        assert rec["eager_peak_above_step"] == 0
+        assert rec["graphed_peak_above_step"] == 0

@@ -349,8 +349,8 @@ def test_combined_packed_step_equals_reference(seed, small_cfg):
 SWITCHES = {
     "extend_impl": (ta.resolve_extend_fn, cuda_extend.extend_candidates,
                     cuda_extend.extend_candidates_plain),
-    "select_impl": (ta.resolve_select_fn, cuda_seed.select_candidates,
-                    cuda_seed.select_candidates_plain),
+    "select_impl": (ta.resolve_select_fn, cuda_seed.seed_select,
+                    cuda_seed.seed_select_plain),
 }
 
 
