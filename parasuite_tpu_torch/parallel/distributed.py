@@ -115,11 +115,8 @@ def run_distributed_host(engine, fastq, out_prefix, *,
     """
     import torch.distributed as dist
 
-    from parasuite_tpu_torch.errormodel.infer import (
-        count_indels_from_cigar, count_substitutions_from_cigar)
     from parasuite_tpu_torch.ops.device_index import min_score_table
     from parasuite_tpu_torch.parallel.multihost import shard_paths
-    from parasuite_tpu_torch.utils.dna import revcomp_codes
 
     nproc = dist.get_world_size()
     pid = dist.get_rank()
@@ -179,15 +176,6 @@ def run_distributed_host(engine, fastq, out_prefix, *,
 
         writer = _W()
 
-        def count_subs(batch, host, b, into):
-            ln = int(batch.lengths[b])
-            st = int(host.strand[b])
-            oriented = (batch.codes[b, :ln] if st == 0 else
-                        revcomp_codes(batch.codes[b, :ln]))
-            count_substitutions_from_cigar(
-                engine.sam_ref.seq, int(host.pos[b]), oriented, ln, st,
-                host.cigars[b], into)
-
         def drain(pend):
             """Host half of one step: sum the counts over the processes,
             fetch, finalize, count, emit."""
@@ -203,33 +191,17 @@ def run_distributed_host(engine, fastq, out_prefix, *,
             # combined: to_host projects/re-finalizes this process's rows of
             # (AlignResult, CandidateTable) exactly like single-process mode
             host = engine.to_host(batch, out)
-            if with_profile_counts and combined:
+            if with_profile_counts:
+                # the host's share: combined counts every emitted record
+                # into the LOCAL `counts`; plain adds what the in-step sum
+                # never saw (gapped rows, rescued rows) to gsub, which rides
+                # the per-shard indels file (merge_host_outputs sums it),
+                # NOT `counts` (global, saved by process 0 alone)
                 np_inc, ng_inc = engine.accumulate_profile_host(
-                    batch, host, counts, ins, dels)
+                    batch, host, gsub if reduce_counts else counts, ins,
+                    dels)
                 n_profiled += np_inc
                 n_gapped += ng_inc
-            elif with_profile_counts:
-                n_profiled += int((host.mapped & (batch.lengths > 0)).sum())
-                for b in range(batch.n_real):
-                    if host.mapped[b] and not host.ug_equal[b]:
-                        count_indels_from_cigar(
-                            host.cigars[b], int(batch.lengths[b]),
-                            int(host.strand[b]), ins, dels)
-                        # gapped substitution counts are LOCAL host work —
-                        # the in-step sum carries only the device's
-                        # ungapped matrix, so they ride the per-shard indels
-                        # file (merge_host_outputs sums them), NOT `counts`
-                        # (which is global and saved by process 0 alone)
-                        count_subs(batch, host, b, gsub)
-                        n_gapped += 1
-                # ungapped rescued rows (config.rescue_kmer) are local host
-                # work outside the in-step sum, like the gapped subs above
-                r_rows = getattr(engine, "last_rescue_rows", None)
-                if r_rows is not None:
-                    for b in r_rows:
-                        b = int(b)
-                        if host.mapped[b] and host.ug_equal[b]:
-                            count_subs(batch, host, b, gsub)
             engine.emit_sam(batch, host, writer)
             n_records += batch.n_real
             batch_records.append(batch.n_real)

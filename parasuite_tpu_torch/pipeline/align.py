@@ -378,7 +378,7 @@ class AlignerEngine:
 
     Duck-typed for streaming_align: cfg, sam_ref, supports_packed,
     align_device, align_device_packed, profile_counts_device, to_host,
-    emit_sam, emit_bam."""
+    accumulate_profile_host, emit_sam, emit_bam."""
 
     def __init__(self, ref: PackedReference, index: KmerIndex,
                  cfg: AlignConfig, s_tensor: np.ndarray | None = None,
@@ -424,7 +424,7 @@ class AlignerEngine:
         self._rescue = None
         self.rescue_overflow = 0   # unmapped rows beyond the rescue batch
         self.rescue_mapped = 0     # reads the rescue pass recovered
-        self.last_rescue_rows = None
+        self.last_rescue_rows = None  # the rows rescued in to_host's batch
         if cfg.rescue_kmer:
             cfg2 = cfg.replace(kmer_size=cfg.rescue_kmer, rescue_kmer=0,
                                max_seeds=max(cfg.rescue_seeds,
@@ -567,21 +567,14 @@ class AlignerEngine:
         """Pull a step's results (AlignResult, PackedResult, or with XA the
         candidate table beside the AlignResult) to host in ONE transfer;
         run tracebacks for the rare gapped reads."""
-        cfg = self.cfg
         res, table = self._fetch(res)
-        mapped = res.mapped
-        strand = res.strand
-        pos = res.pos.copy()
-        score = res.score
-        ug_eq = res.ug_equal
-        nm = res.nm.copy()
-        diag = res.diag
-        lens = batch.lengths
-        tc = res.tc_count.copy()
-        mapq, x0, x1 = res.mapq, res.x0, res.x1
-        self.last_rescue_rows = None  # rows rescued in THIS batch (stream
-        # profile accumulation counts their substitutions host-side: the
-        # fused device counts are pass-1-keyed and never saw them)
+        # the fetched arrays are this call's own host memory: the gapped
+        # rows and the rescue tier's rows are written into them in place
+        mapped, strand, pos, score = res.mapped, res.strand, res.pos, res.score
+        mapq, x0, x1, nm = res.mapq, res.x0, res.x1, res.nm
+        ug_eq, diag, tc = res.ug_equal, res.diag, res.tc_count
+        lens = np.asarray(batch.lengths)
+        self.last_rescue_rows = None
         # rescue dispatches NOW and merges after the primary host work, so
         # its device step overlaps the gapped tracebacks
         pend_rescue = None
@@ -589,28 +582,13 @@ class AlignerEngine:
             with span("engine.rescue"):
                 pend_rescue = self._dispatch_rescue(batch, mapped)
         cigars = LazyCigars(mapped, lens)
-        grows = np.nonzero(mapped & ~ug_eq)[0]
-        if grows.shape[0]:
-            # all gapped reads in ONE vectorized DP (host_tracebacks_batch)
-            om = orient_rows(batch.codes, lens, grows, strand)
-            tbs = host_tracebacks_batch(
-                self.ref.seq, self.s_tensor, self.s_comp, cfg, om,
-                lens[grows], strand[grows], diag[grows])
-            with span("engine.rows"):
-                for k, b in enumerate(grows):
-                    p, cigar, total_nm = tbs[k]
-                    pos[b] = p
-                    cigars[b] = cigar
-                    nm[b] = total_nm
-                    tc[b] = tc_count_from_cigar(self.ref.seq, p,
-                                                om[k, : int(lens[b])],
-                                                int(strand[b]), cigar)
+        self._finish_gapped(batch.codes, lens, np.nonzero(mapped & ~ug_eq)[0],
+                            strand, diag, pos, cigars, nm, tc)
         if pend_rescue is not None:
             with span("engine.rescue"):
-                (mapped, strand, pos, score, mapq, x0, x1, nm, ug_eq, diag,
-                 tc) = self._finish_rescue(pend_rescue, batch, cigars,
-                                           mapped, strand, pos, score, mapq,
-                                           x0, x1, nm, ug_eq, diag, tc)
+                self._finish_rescue(pend_rescue, batch, cigars, mapped,
+                                    strand, pos, score, mapq, x0, x1, nm,
+                                    ug_eq, diag, tc)
         xa = None
         if table is not None:
             with span("engine.xa"):
@@ -621,6 +599,30 @@ class AlignerEngine:
                               nm=nm, ug_equal=ug_eq, cigars=cigars,
                               tc_count=tc, xa=xa)
 
+    def _finish_gapped(self, codes, lengths, rows, strand, diag, pos, cigars,
+                       nm, tc) -> None:
+        """Finish the gapped `rows` of one batch on the host: orient them,
+        trace them back in one host_tracebacks_batch call, and write each
+        row's start, CIGAR, NM and T->C count into pos, cigars, nm and tc
+        (strand and diag: the batch's, by row). host_tracebacks_batch is
+        the module's name, looked up at each call, so a timer patched over
+        it sees every call."""
+        if rows.shape[0] == 0:
+            return
+        seq = self.ref.seq
+        om = orient_rows(codes, lengths, rows, strand)
+        tbs = host_tracebacks_batch(seq, self.s_tensor, self.s_comp,
+                                    self.cfg, om, lengths[rows],
+                                    strand[rows], diag[rows])
+        with span("engine.rows"):
+            for k, b in enumerate(rows):
+                p, cigar, total_nm = tbs[k]
+                pos[b] = p
+                cigars[b] = cigar
+                nm[b] = total_nm
+                tc[b] = tc_count_from_cigar(seq, p, om[k, : int(lengths[b])],
+                                            int(strand[b]), cigar)
+
     def _dispatch_rescue(self, batch, mapped):
         """Two-tier seeding (config.rescue_kmer), dispatch half: enqueue the
         smaller-k device step over this batch's unmapped reads and return
@@ -629,7 +631,7 @@ class AlignerEngine:
 
         Rescued rows carry the cfg2 result wholesale. Profile counts: the
         device count matrix is keyed on the primary pass, so
-        pipeline/stream.py counts rescued rows host-side from
+        accumulate_profile_host counts rescued rows host-side from
         self.last_rescue_rows. XA alternates are not emitted for rescued
         rows. Unmapped rows beyond the rescue batch cap stay unmapped and
         are counted in self.rescue_overflow (no silent cap)."""
@@ -652,48 +654,31 @@ class AlignerEngine:
         step = self._step_packed if self.supports_packed else self._step
         return rows, step(didx2, cfg2, codes2, lens2)
 
-    def _finish_rescue(self, pend, batch, cigars, *arrays):
+    def _finish_rescue(self, pend, batch, cigars, *arrays) -> None:
         """Merge half of the rescue pass: fetch the small-k results, write
-        rescued rows into (copies of) the result arrays, rebind the CIGAR
-        store, and run the gapped rescued tracebacks. Band and gap
-        parameters are equal between tiers, so host_tracebacks_batch under
-        self.cfg is exact for the rescue tier too."""
+        rescued rows into the batch's result arrays in place (so `cigars`,
+        built on their `mapped`, gives them their "{L}M" default), and
+        finish the gapped rescued rows. Band and gap parameters are equal
+        between tiers, so host_tracebacks_batch under self.cfg is exact for
+        the rescue tier too."""
         rows, out2 = pend
         r2, _ = self._fetch(out2)
         m2 = r2.mapped[: rows.shape[0]]
         if not m2.any():
-            return arrays
+            return
         hit = rows[m2]
         src = np.nonzero(m2)[0]
         self.rescue_mapped += int(hit.shape[0])
         self.last_rescue_rows = hit
-        outs = [a.copy() for a in arrays]
-        for o, f in zip(outs, ("mapped", "strand", "pos", "score", "mapq",
-                               "x0", "x1", "nm", "ug_equal", "diag",
-                               "tc_count")):
+        for o, f in zip(arrays, ("mapped", "strand", "pos", "score", "mapq",
+                                 "x0", "x1", "nm", "ug_equal", "diag",
+                                 "tc_count")):
             o[hit] = getattr(r2, f)[src]
-        (mapped, strand, pos, score, _mapq, _x0, _x1, nm, ug_eq, diag,
-         tc) = outs
-        # LazyCigars was built against the pre-merge mapped array; rescued
-        # rows synthesize their "{L}M" default off the merged one
-        cigars._mapped = mapped
-        g2 = hit[~ug_eq[hit]]
-        if g2.shape[0]:
-            lens_all = np.asarray(batch.lengths)
-            om = orient_rows(batch.codes, lens_all, g2, strand)
-            tbs = host_tracebacks_batch(
-                self.ref.seq, self.s_tensor, self.s_comp, self.cfg, om,
-                lens_all[g2], strand[g2], diag[g2])
-            for k, b in enumerate(g2):
-                p, cigar, total_nm = tbs[k]
-                b = int(b)
-                pos[b] = p
-                cigars[b] = cigar
-                nm[b] = total_nm
-                tc[b] = tc_count_from_cigar(
-                    self.ref.seq, p, om[k, : int(lens_all[b])],
-                    int(strand[b]), cigar)
-        return tuple(outs)
+        (_mapped, strand, pos, _score, _mapq, _x0, _x1, nm, ug_eq, diag,
+         tc) = arrays
+        self._finish_gapped(batch.codes, np.asarray(batch.lengths),
+                            hit[~ug_eq[hit]], strand, diag, pos, cigars, nm,
+                            tc)
 
     def _xa_strings(self, batch, table, mapped, strand, pos, score,
                     rows=None):
@@ -794,32 +779,61 @@ class AlignerEngine:
         (host tracebacks). Feeds ErrorProfile during pass-1 inference so
         every aligned read contributes. Returns the number of gapped
         reads."""
-        from parasuite_tpu_torch.errormodel.infer import (
-            count_indels_from_cigar, count_substitutions_from_cigar)
-
         if not isinstance(res, PackedResult) and not hasattr(res, "mapped"):
             res = res[0]
         res, _ = self._fetch(res)
-        strand = res.strand
         n = batch.n_real
-        grows = np.nonzero(res.mapped[:n] & ~res.ug_equal[:n])[0]
-        if grows.shape[0] == 0:
-            return 0
         lens = np.asarray(batch.lengths)
-        om = orient_rows(batch.codes, lens, grows, strand)
-        tbs = host_tracebacks_batch(
-            self.ref.seq, self.s_tensor, self.s_comp, self.cfg, om,
-            lens[grows], strand[grows], res.diag[grows])
-        for k, b in enumerate(grows):
-            ln = int(lens[b])
-            pos, cigar, _nm = tbs[k]
-            count_indels_from_cigar(cigar, ln, int(strand[b]), ins_counts,
-                                    del_counts)
-            if sub_counts is not None:
-                count_substitutions_from_cigar(
-                    self.ref.seq, pos, om[k, :ln], ln, int(strand[b]),
-                    cigar, sub_counts)
+        grows = np.nonzero(res.mapped[:n] & ~res.ug_equal[:n])[0]
+        cigars = LazyCigars(res.mapped, lens)
+        self._finish_gapped(batch.codes, lens, grows, res.strand, res.diag,
+                            res.pos, cigars, res.nm, res.tc_count)
+        if sub_counts is None:
+            sub_counts = np.zeros((self.cfg.max_read_len, 4, 4), np.int64)
+        self._count_cigars(batch, grows, res.strand, res.pos, cigars,
+                           sub_counts, ins_counts, del_counts)
         return int(grows.shape[0])
+
+    def accumulate_profile_host(self, batch: ReadBatch, host: HostAlignments,
+                                subs: np.ndarray, ins: np.ndarray,
+                                dels: np.ndarray) -> tuple[int, int]:
+        """The host's share of one batch's profile, after to_host: what
+        the step's fused counts did not see. Those hold the primary tier's
+        ungapped rows; this adds the gapped rows' substitutions and indels
+        from their CIGARs, and the substitutions of the rows the rescue
+        tier mapped ungapped in this batch (last_rescue_rows), so every
+        emitted mapped record counts once (SURVEY.md §3.3).
+        -> (reads profiled, gapped rows counted)."""
+        lens = np.asarray(batch.lengths)
+        n = batch.n_real
+        mapped, ug = host.mapped, host.ug_equal
+        gapped = np.nonzero(mapped[:n] & ~ug[:n])[0]
+        rows = gapped
+        r = self.last_rescue_rows
+        if r is not None:
+            # an ungapped row's CIGAR is one M run: no indel events
+            rows = np.concatenate([gapped, r[mapped[r] & ug[r]]])
+        self._count_cigars(batch, rows, host.strand, host.pos, host.cigars,
+                           subs, ins, dels)
+        return (int((mapped & (lens[:mapped.shape[0]] > 0)).sum()),
+                int(gapped.shape[0]))
+
+    def _count_cigars(self, batch, rows, strand, pos, cigars, subs, ins,
+                      dels) -> None:
+        """Count `rows` of one batch as the record loop writes them: the
+        substitutions over each CIGAR's M segments into subs, its indel
+        events into ins and dels. The counters are errormodel.infer's
+        names, looked up at each call."""
+        from parasuite_tpu_torch.errormodel.infer import (
+            count_indels_from_cigar, count_substitutions_from_cigar)
+
+        lens = np.asarray(batch.lengths)
+        om = orient_rows(batch.codes, lens, rows, strand)
+        for k, b in enumerate(rows):
+            ln, st, cigar = int(lens[b]), int(strand[b]), cigars[b]
+            count_substitutions_from_cigar(self.sam_ref.seq, int(pos[b]),
+                                           om[k, :ln], ln, st, cigar, subs)
+            count_indels_from_cigar(cigar, ln, st, ins, dels)
 
     # --- one-call convenience ---
     def align_to_host(self, batch: ReadBatch) -> HostAlignments:

@@ -47,8 +47,7 @@ from parasuite_tpu_torch.index.reference import PackedReference
 from parasuite_tpu_torch.utils.dna import revcomp_codes
 from parasuite_tpu_torch.pipeline.align import (AlignerEngine, HostAlignments,
                                                 LazyCigars, fetch_host,
-                                                host_tracebacks_batch,
-                                                orient_rows)
+                                                host_tracebacks_batch)
 from parasuite_tpu_torch.ops.aligner import (PackedCandidates, TxDeviceTables,
                                              align_batch_combined_packed,
                                              unpack_result_host)
@@ -515,7 +514,6 @@ class CombinedEngine(AlignerEngine):
             e_ug = table.ug_equal[g_rows, g_cand]
             e_diag = table.diag[g_rows, g_cand].astype(np.int64)
             g_rows = g_rows.astype(np.int64)
-        cref = self.combined.ref
 
         out_mapped = np.zeros(B, dtype=bool)
         out_strand = np.zeros(B, dtype=np.int32)
@@ -543,22 +541,9 @@ class CombinedEngine(AlignerEngine):
         out_nm[fm] = res.nm[fm]
         out_ug[fm] = res.ug_equal[fm]
         out_tc[fm] = res.tc_count[fm]
-        grows = np.nonzero(fm & ~res.ug_equal)[0]
-        if grows.shape[0]:
-            om = orient_rows(batch.codes, lens, grows, out_strand)
-            tbs = host_tracebacks_batch(
-                cref.seq, self.s_tensor, self.s_comp, cfg, om,
-                lens[grows].astype(np.int64), out_strand[grows],
-                res.diag[grows])
-            with span("engine.rows"):
-                for k, b in enumerate(grows):
-                    p, cigar, total_nm = tbs[k]
-                    out_pos[b] = p
-                    out_cigars[b] = cigar
-                    out_nm[b] = total_nm
-                    out_tc[b] = tc_count_from_cigar(
-                        cref.seq, p, om[k, : int(lens[b])],
-                        int(out_strand[b]), cigar)
+        self._finish_gapped(batch.codes, lens,
+                            np.nonzero(fm & ~res.ug_equal)[0], out_strand,
+                            res.diag, out_pos, out_cigars, out_nm, out_tc)
 
         # junction winners the device finalized (projected step): the
         # record is final except its N CIGAR — one window gather from the
@@ -898,10 +883,9 @@ class CombinedEngine(AlignerEngine):
         Semantics per read are identical to errormodel.infer
         (machine-frame cycles, N positions skipped); the ungapped majority
         is one vectorized window-gather + bincount, gapped/junction winners
-        walk their CIGARs. Returns (n_profiled, n_gapped) increments.
+        walk their CIGARs (the plain engine's _count_cigars). Returns
+        (n_profiled, n_gapped) increments.
         """
-        from parasuite_tpu_torch.errormodel.infer import (
-            count_indels_from_cigar, count_substitutions_from_cigar)
         from parasuite_tpu_torch.utils.dna import COMP
 
         n = batch.n_real
@@ -934,18 +918,10 @@ class CombinedEngine(AlignerEngine):
             idx3 = (q[None, :] * 16 + ref_b * 4 + read_b)[ok]
             counts += np.bincount(idx3, minlength=Lc * 16).reshape(Lc, 4, 4)
 
-        n_gapped = 0
-        for b in np.nonzero(mapped & ~ug)[0]:
-            ln_b = int(lens[b])
-            st_b = int(host.strand[b])
-            oriented = (batch.codes[b, :ln_b] if st_b == 0
-                        else revcomp_codes(batch.codes[b, :ln_b]))
-            cigar = host.cigars[b]
-            count_substitutions_from_cigar(seq, int(host.pos[b]), oriented,
-                                           ln_b, st_b, cigar, counts)
-            count_indels_from_cigar(cigar, ln_b, st_b, ins_counts, del_counts)
-            n_gapped += 1
-        return int(mapped.sum()), n_gapped
+        gapped = np.nonzero(mapped & ~ug)[0]
+        self._count_cigars(batch, gapped, host.strand, host.pos, host.cigars,
+                           counts, ins_counts, del_counts)
+        return int(mapped.sum()), int(gapped.shape[0])
 
 
 def build_combined_index(fasta, annotation, out_prefix, cfg: AlignConfig) -> dict:

@@ -10,7 +10,7 @@ runs: both passes stream FASTQ -> SAM through streaming_align.
 Rescued rows (config.rescue_kmer) are left out of the profile here, as in
 the reference: infer_profile_streaming runs the device step without
 to_host, so the rescue pass never runs in pass 1. streaming_align counts
-them (ROADMAP Queue 3).
+them (ROADMAP Queue 1, "Rescued rows and the profile").
 """
 
 from __future__ import annotations

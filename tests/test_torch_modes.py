@@ -294,6 +294,71 @@ def test_gapped_indel_counts_equal_reference(small_cfg, tiny_ref,
     assert got[1][1].sum() + got[1][2].sum() > 0
 
 
+def test_accumulate_profile_host_counts_every_record(small_cfg, tiny_ref,
+                                                     tiny_index, tmp_path):
+    """The plain engine's host share of the profile on a batch with gapped
+    and rescued rows: the step's fused counts plus what
+    accumulate_profile_host adds equal count_substitutions_from_cigar and
+    count_indels_from_cigar summed over every mapped record to_host gives
+    the writer (SURVEY.md §3.3), and its (n_profiled, n_gapped) and counts
+    equal what streaming_align reports for the same batch."""
+    from parasuite_tpu_torch.errormodel.infer import (
+        count_indels_from_cigar, count_substitutions_from_cigar)
+    from parasuite_tpu_torch.utils.dna import revcomp_codes
+
+    cfg = to_port(small_cfg.replace(batch_size=128, rescue_kmer=6))
+    rng = np.random.default_rng(910)
+    gapped, g_lens, _ = sample_reads(rng, tiny_ref, 64, 50, mutate=1,
+                                     indel=True)
+    short, s_lens, _ = sample_reads(rng, tiny_ref, 64, 36, mutate=5)
+    codes = np.concatenate(
+        [gapped, np.concatenate([short, np.full((64, 14), 4, np.int8)],
+                                axis=1)])
+    lengths = np.concatenate([g_lens, s_lens])
+    eng = talign.AlignerEngine(to_port(tiny_ref), to_port(tiny_index), cfg,
+                               device="cpu")
+    batch = to_port(_mk_batch(codes, lengths))
+    res, c = eng.align_device_packed(codes, lengths, with_counts=True)
+    host = eng.to_host(batch, res)
+    L = cfg.max_read_len
+    subs = c.numpy().astype(np.int64)
+    ins, dels = np.zeros(L, np.int64), np.zeros(L, np.int64)
+    n_prof, n_gap = eng.accumulate_profile_host(batch, host, subs, ins, dels)
+
+    rescued = eng.last_rescue_rows
+    assert rescued is not None and host.ug_equal[rescued].any()
+    want_subs = np.zeros((L, 4, 4), np.int64)
+    want_ins, want_dels = np.zeros(L, np.int64), np.zeros(L, np.int64)
+    n_mapped = n_gapped = 0
+    for b in range(codes.shape[0]):
+        if not host.mapped[b]:
+            continue
+        ln, st = int(lengths[b]), int(host.strand[b])
+        read = codes[b, :ln] if st == 0 else revcomp_codes(codes[b, :ln])
+        count_substitutions_from_cigar(tiny_ref.seq, int(host.pos[b]), read,
+                                       ln, st, host.cigars[b], want_subs)
+        count_indels_from_cigar(host.cigars[b], ln, st, want_ins, want_dels)
+        n_mapped += 1
+        n_gapped += not host.ug_equal[b]
+    np.testing.assert_array_equal(subs, want_subs)
+    np.testing.assert_array_equal(ins, want_ins)
+    np.testing.assert_array_equal(dels, want_dels)
+    assert (n_prof, n_gap) == (n_mapped, n_gapped)
+    assert n_gap > 0 and want_ins.sum() + want_dels.sum() > 0
+
+    fq = tmp_path / "mixed.fastq"
+    write_fastq(fq, [f"m{i}" for i in range(codes.shape[0])], codes,
+                lengths)
+    indels: dict = {}
+    _n, counts, n_profiled = t_stream(eng, fq, tmp_path / "mixed.sam",
+                                      with_profile_counts=True,
+                                      indel_out=indels)
+    assert (n_profiled, indels["n_gapped"]) == (n_prof, n_gap)
+    np.testing.assert_array_equal(counts, subs)
+    np.testing.assert_array_equal(indels["ins"], ins)
+    np.testing.assert_array_equal(indels["dels"], dels)
+
+
 @pytest.mark.parametrize("mode", ["plain", "rescue", "xa"])
 def test_two_pass_api_equals_reference(mode, small_cfg, tiny_ref, tiny_index,
                                        tmp_path):
