@@ -687,6 +687,20 @@ def seed_select_bound(rows: int, L: int, S: int, filled: int, n: int,
                   rows * (compares + 2 * n + C))
 
 
+def finalize_bound(B: int, n: int, window_bases: int) -> dict:
+    """Bytes: each read's n entries' valid (a byte), pos_key and dps (4
+    each), the strand row every read shares (4n once), at the pick its
+    ug_eq and diag (5), its length, the `window_bases` bases of the mapped
+    reads' windows (min(L, length) a read: 4 bytes of the oriented strand
+    and 1 of ref_seq each), and 42 bytes out (nine int32 and two bool
+    fields of the AlignResult, best_idx). Operations per read, whatever the
+    algorithm: a dedupe by sorting its n (strand, pos_key, score) keys, n *
+    ceil(log2 n) compares."""
+    compares = n * max(1, int(n - 1).bit_length())
+    return _bound(B * (9 * n + 5 + 4 + 42) + 4 * n + 5 * window_bases,
+                  B * compares)
+
+
 def extend_bound(lengths: np.ndarray, C: int, L: int, W: int, G: int) -> dict:
     """Bytes: oriented reads int32 [2B, L], lengths, candidates int32
     [2B, C], the reference windows (L + 2W bytes a pair, at most the whole
@@ -866,21 +880,39 @@ def kernels_vs_plain(engine, gpu: str) -> list[dict]:
     import torch
 
     from parasuite_tpu_torch.io.fastq import read_fastq
-    from parasuite_tpu_torch.ops import aligner, cuda_extend, cuda_seed
+    from parasuite_tpu_torch.ops import (aligner, cuda_extend, cuda_finalize,
+                                         cuda_seed)
 
     cfg, didx, sprof, dev = engine.cfg, engine.didx, engine.sprof, \
         engine.device
     batch = read_fastq(WORK / "all.fastq", READ_LEN)
 
     def stage_inputs(n):
+        """-> (oriented, lengths, the seed rows, finalize's entries from
+        the kernels' select and extend)."""
         codes = torch.from_numpy(batch.codes[:n]).to(dev)
         lens = torch.from_numpy(batch.lengths[:n].astype(np.int32)).to(dev)
         oriented = aligner.orient_reads(codes, lens)
+        cand, valid = cuda_seed.seed_select(oriented, lens, didx, cfg)
+        ext = cuda_extend.extend_candidates(oriented, lens, cand, didx,
+                                            sprof, cfg)
+        entries = aligner.finalize_entries(
+            oriented, lens, engine._ms_table[lens.long()], cand, valid,
+            *ext, didx, cfg)
         return oriented, lens, aligner.seed_diagonals(oriented, lens, didx,
+                                                      cfg), entries
+
+    def finalize_pair(d):
+        res, best_idx = cuda_finalize.finalize_select(*d[3], didx, sprof,
                                                       cfg)
+        return (*res, best_idx)
+
+    def finalize_plain(d):
+        res, best_idx = aligner.finalize_core(*d[3], didx, sprof, cfg)
+        return (*res, best_idx)
 
     out = []
-    oriented, lens, diags = stage_inputs(N_PIN)
+    oriented, lens, diags, entries = stage_inputs(N_PIN)
     cand, valid = cuda_seed.select_candidates(diags, cfg)
     cand_p, valid_p = cuda_seed.select_candidates_plain(diags, cfg)
     seeded = cuda_seed.seed_select(oriented, lens, didx, cfg)
@@ -888,11 +920,14 @@ def kernels_vs_plain(engine, gpu: str) -> list[dict]:
                                         cfg)
     ext_p = cuda_extend.extend_candidates_plain(oriented, lens, cand, didx,
                                                 sprof, cfg)
+    d16 = (oriented, lens, diags, entries)
+    fin, fin_p = finalize_pair(d16), finalize_plain(d16)
     torch.cuda.synchronize()
     checks = {
         "select_candidates": [(cand, cand_p), (valid, valid_p)],
         "extend_candidates": list(zip(ext, ext_p)),
         "seed_select": list(zip(seeded, (cand_p, valid_p))),
+        "finalize_select": list(zip(fin, fin_p)),
     }
     timed = {
         "select_candidates": (
@@ -906,6 +941,7 @@ def kernels_vs_plain(engine, gpu: str) -> list[dict]:
         "seed_select": (
             lambda d: cuda_seed.seed_select(d[0], d[1], didx, cfg),
             lambda d: cuda_seed.seed_select_plain(d[0], d[1], didx, cfg)),
+        "finalize_select": (finalize_pair, finalize_plain),
     }
     # what the seeded kernel replaced on the main path: the seed stage's
     # PyTorch kernels, then the select kernel over their rows
@@ -917,12 +953,17 @@ def kernels_vs_plain(engine, gpu: str) -> list[dict]:
                                      "parasuite_tpu/ops/pallas_extend.py:56"),
                "seed_select": ("select_candidates.cu",
                                "parasuite_tpu/ops/pallas_seed.py:40 and "
-                               "parasuite_tpu/ops/aligner.py seed_diagonals")}
-    d16 = (oriented, lens, diags)
+                               "parasuite_tpu/ops/aligner.py seed_diagonals"),
+               "finalize_select": ("finalize_select.cu",
+                                   "no Pallas kernel: parasuite_tpu/ops/"
+                                   "aligner.py:368 finalize_core (XLA)")}
     G = int(didx.ref_seq.shape[0])
 
-    def bounds(n_reads, diags):
+    def bounds(n_reads, diags, entries):
         n_diag = int(diags.shape[1])
+        res = aligner.finalize_core(*entries, didx, sprof, cfg)[0]
+        window = int(torch.minimum(entries[1], torch.tensor(
+            cfg.max_read_len, device=dev))[res.mapped].sum())
         return {"select_candidates": select_bound(
                     2 * n_reads, n_diag, cfg.max_candidates),
                 "extend_candidates": extend_bound(
@@ -931,9 +972,11 @@ def kernels_vs_plain(engine, gpu: str) -> list[dict]:
                 "seed_select": seed_select_bound(
                     2 * n_reads, cfg.max_read_len, cfg.max_seeds,
                     int((diags != cuda_seed.I32MAX).sum()), n_diag,
-                    cfg.max_candidates)}
+                    cfg.max_candidates),
+                "finalize_select": finalize_bound(
+                    n_reads, 2 * cfg.max_candidates, window)}
 
-    bound16 = bounds(N_PIN, diags)
+    bound16 = bounds(N_PIN, diags, entries)
     for name, pairs in checks.items():
         err = 0
         for k, p in pairs:
@@ -960,22 +1003,24 @@ def kernels_vs_plain(engine, gpu: str) -> list[dict]:
         if name in replaced:
             out[-1]["replaced_ms"] = _median_ms(lambda: replaced[name](d16))
     # the kernels alone at the main path's batch of 65,536 reads
-    oriented, lens, diags = stage_inputs(BATCH)
+    oriented, lens, diags, entries = stage_inputs(BATCH)
     cand, _ = cuda_seed.select_candidates(diags, cfg)
-    d_batch = (oriented, lens, diags)
+    d_batch = (oriented, lens, diags, entries)
     kernel_calls = {
         "select_candidates": lambda: cuda_seed.select_candidates(diags, cfg),
         "extend_candidates": lambda: cuda_extend.extend_candidates(
             oriented, lens, cand, didx, sprof, cfg),
         "seed_select": lambda: cuda_seed.seed_select(oriented, lens, didx,
-                                                     cfg)}
+                                                     cfg),
+        "finalize_select": lambda: cuda_finalize.finalize_select(
+            *entries, didx, sprof, cfg)}
     ms_batch = {name: _median_ms(fn) for name, fn in kernel_calls.items()}
     # the same calls back to back: the card's own time, the host's enqueue
     # of each call hidden behind the one before
     b2b_batch = {name: _median_ms(lambda: [fn() for _ in range(20)],
                                   reps=5) / 20
                  for name, fn in kernel_calls.items()}
-    bound_batch = bounds(BATCH, diags)
+    bound_batch = bounds(BATCH, diags, entries)
     plain_batch = {name: _median_ms(lambda: timed[name][1](d_batch), reps=3)
                    for name in kernel_calls}
     for k in out:
@@ -1092,14 +1137,20 @@ def _counters() -> dict:
     return launch_counts()
 
 
-def _expect_launches(got: dict, want: int, what: str) -> None:
+def _expect_launches(got: dict, want: int, what: str,
+                     finalize: int | None = None) -> None:
     """The main path's launches: `want` of the seeded select kernel and of
-    the extend kernel, none of the select kernel over rows of diagonals."""
+    the extend kernel, none of the select kernel over rows of diagonals,
+    and `finalize` (default `want`: a step launches each once) of the
+    finalize kernel."""
+    finalize = want if finalize is None else finalize
     if (got["seed_select"], got["extend_candidates"],
-            got["select_candidates"]) != (want, want, 0):
+            got["select_candidates"], got["finalize_select"]) != \
+            (want, want, 0, finalize):
         raise AssertionError(f"{what}: kernel launches {got}, want {want} "
                              f"of seed_select and extend_candidates each "
-                             f"(batches x passes), 0 of select_candidates")
+                             f"(batches x passes), 0 of select_candidates, "
+                             f"{finalize} of finalize_select")
 
 
 def pinned_twopass() -> None:
@@ -2286,7 +2337,7 @@ def _host_equal(want, got, what: str) -> None:
 
 def _ops_of(fn) -> dict:
     """What one call of fn (a step and its fetch) puts on the device: the
-    PyTorch operators it dispatches, the kernel launches of the two
+    PyTorch operators it dispatches, the kernel launches of the
     wrappers, the CUDA graphs it replays, and the CUDA kernels and copies
     the profiler records (None where it records none)."""
     import torch
@@ -2420,7 +2471,8 @@ def wire_phase(gpu: str) -> dict:
     launches = {name: _ops_of(steps[name]) for name in steps}
     for name, want in (("wire", 1), ("unpacked", 1)):
         if (launches[name]["seed_select"],
-                launches[name]["extend_candidates"]) != (want, want):
+                launches[name]["extend_candidates"],
+                launches[name]["finalize_select"]) != (want, want, want):
             raise AssertionError(f"wire: {name} launches {launches[name]}")
     # (f) "jnp" on the card = "auto", field by field, on 4,096 reads
     small = [x[:4096] for x in chunks[0]]
@@ -2432,7 +2484,7 @@ def wire_phase(gpu: str) -> dict:
             engine.didx, engine.sprof, *engine._upload_wire(*small),
             engine._ms_table, c))
         _expect_launches(_counters(), 1 if impl == "auto" else 0,
-                         f"wire: {impl}")
+                         f"wire: {impl}", finalize=1)
     _host_equal(outs["auto"], outs["jnp"], "wire: jnp vs auto on the card")
     del engine
     torch.cuda.empty_cache()
@@ -2718,10 +2770,10 @@ def graph_phase(gpu: str) -> dict:
         lambda e=e, w=bool(suffix): _fetch_out(
             e.align_device_packed(codes, lens, with_counts=w)))
         for mode, e in engines.items() for suffix in ("", "_counts")}
-    for name, want in (("graphed", (1, 1, 1)), ("eager", (1, 1, 0))):
+    for name, want in (("graphed", (1, 1, 1, 1)), ("eager", (1, 1, 1, 0))):
         got = per_step[name]
         if (got["seed_select"], got["extend_candidates"],
-                got["graph_launches"]) != want:
+                got["finalize_select"], got["graph_launches"]) != want:
             raise AssertionError(f"graph: {name} step put {got}")
     wire = {mode: e._upload_wire(codes, lens) for mode, e in engines.items()}
     steps = {"graphed": graphed._steps[cfg]["packed"],
@@ -2889,7 +2941,8 @@ def _multi_in_turns(label: str, routes: dict, batches: list,
     for mode, graphs in (("graphed", n_graphs), ("eager", 0)):
         got = per_step[mode]
         if (got["seed_select"], got["extend_candidates"],
-                got["graph_launches"]) != (per_call, per_call, graphs):
+                got["finalize_select"], got["graph_launches"]) != \
+                (per_call, per_call, per_call, graphs):
             raise AssertionError(f"dist_graph {label}: {mode} call put {got}")
     times = {f"{m}_{what}": [] for m in routes
              for what in ("enqueue", "call_on_card", "call_from_host")}

@@ -154,5 +154,8 @@ def load() -> ctypes.CDLL:
     lib.ps_extend_candidates.argtypes = [ptr] * 6 + [i32] * 7 + [ptr] * 5
     lib.ps_extend_occupancy.restype = i32
     lib.ps_extend_occupancy.argtypes = [i32, i32, i32, ptr]
+    table = ctypes.POINTER(ctypes.c_void_p)
+    lib.ps_finalize_select.restype = i32
+    lib.ps_finalize_select.argtypes = [table, table] + [i32] * 7 + [ptr]
     _lib = lib
     return lib

@@ -33,6 +33,10 @@ the plain PyTorch versions for CPU tensors. The select kernel reads the
 oriented reads and the k-mer index and builds each row of seed diagonals
 itself, so the step never holds the rows (seed_diagonals runs only in the
 plain version).
+The selection half of finalize goes through cuda_finalize.finalize_select,
+in finalize and in the combined step alike: on CUDA tensors one launch of
+the finalize kernel, which never holds finalize_core's [B, n, n] dedupe
+masks nor its [B, L] window; on CPU tensors finalize_core below.
 Nothing here synchronises with the device, so a caller can keep several
 batches in flight.
 """
@@ -47,6 +51,7 @@ import torch
 from parasuite_tpu_torch.config import AlignConfig
 from parasuite_tpu_torch.ops.cuda_extend import (NEG, extend_candidates,
                                                  extend_candidates_plain)
+from parasuite_tpu_torch.ops.cuda_finalize import finalize_select
 from parasuite_tpu_torch.ops.cuda_seed import (  # noqa: F401
     I32MAX, seed_diagonals, seed_select, seed_select_plain)
 from parasuite_tpu_torch.ops.device_index import DeviceIndex, ScoreParams
@@ -114,6 +119,19 @@ def finalize(oriented, lengths, min_scores, cand_diag, cand_valid,
              sprof: ScoreParams, cfg: AlignConfig) -> AlignResult:
     """Dedupe, select, count hits, MAPQ, boundary policy, ungapped NM.
     Inputs at [B2, C]; outputs at [B]."""
+    return finalize_select(*finalize_entries(
+        oriented, lengths, min_scores, cand_diag, cand_valid, dp_score, dp_j,
+        ug_score, ug_j, didx, cfg), didx, sprof, cfg)[0]
+
+
+def finalize_entries(oriented, lengths, min_scores, cand_diag, cand_valid,
+                     dp_score, dp_j, ug_score, ug_j, didx: DeviceIndex,
+                     cfg: AlignConfig) -> tuple:
+    """finalize's per-read entries from the stages' [B2, C] outputs ->
+    (oriented, lengths, valid, strand, pos_key, dps, ug_eq, diag,
+    n_candidates), the leading arguments of finalize_core and
+    finalize_select, each per-entry array [B, n]; strand is one row
+    broadcast to every read."""
     B = oriented.shape[0]
     L = oriented.shape[2]
     C = cand_diag.shape[1]
@@ -139,8 +157,8 @@ def finalize(oriented, lengths, min_scores, cand_diag, cand_valid,
     pos_key = diag - W + j_sel
     valid = valid0 & (dps >= min_scores[:, None])
     n_candidates = valid0.sum(dim=1, dtype=torch.int32)
-    return finalize_core(oriented, lengths, valid, strand, pos_key, dps,
-                         ug_eq, diag, n_candidates, didx, sprof, cfg)[0]
+    return (oriented, lengths, valid, strand, pos_key, dps, ug_eq, diag,
+            n_candidates)
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
@@ -666,7 +684,7 @@ def align_batch_combined_packed(didx: DeviceIndex, sprof: ScoreParams,
     # junction winners' NM/T->C windows read the combined-space frame
     nm_pos = torch.where(noncontig, table.pos, proj_pos)
     nm_strand = torch.where(noncontig, table.strand, proj_strand)
-    res, best_idx = finalize_core(
+    res, best_idx = finalize_select(
         oriented, lengths, table.valid, proj_strand, proj_pos, table.score,
         table.ug_equal, table.diag, n_cands, didx, sprof, cfg,
         src=is_tx.to(torch.int32), nm_pos=nm_pos, nm_strand=nm_strand)

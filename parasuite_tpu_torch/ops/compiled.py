@@ -28,9 +28,10 @@ copies enqueued op by op from Python:
     (AlignerEngine.set_profile copies pass 2's scores into pass 1's);
   * launch counts: a replay runs no Python, so the launches of the kernel
     wrappers (KERNELS: cuda_seed.seeded_launches, cuda_seed.launches,
-    cuda_extend.launches) that a graph holds are counted at capture and
-    added to the counters on every replay; a step's graph holds one seeded
-    select launch and no launch from rows of diagonals;
+    cuda_extend.launches, cuda_finalize.launches) that a graph holds are
+    counted at capture and added to the counters on every replay; a step's
+    graph holds one seeded select launch, no launch from rows of diagonals,
+    one extend launch and one finalize launch;
   * no eager fallback on CUDA: a capture that fails raises, naming the step,
     its device and the key;
   * the step's device: warm-up, capture and replay run with it as the
@@ -55,14 +56,15 @@ import time
 import torch
 from torch.utils import _pytree as pytree
 
-from parasuite_tpu_torch.ops import cuda_extend, cuda_seed
+from parasuite_tpu_torch.ops import cuda_extend, cuda_finalize, cuda_seed
 from parasuite_tpu_torch.utils.runlog import count, span
 
 # the launch counters of the kernel wrappers, by kernel name: (module,
 # counter); the select kernel counts its two row sources apart
 KERNELS = {"seed_select": (cuda_seed, "seeded_launches"),
            "select_candidates": (cuda_seed, "launches"),
-           "extend_candidates": (cuda_extend, "launches")}
+           "extend_candidates": (cuda_extend, "launches"),
+           "finalize_select": (cuda_finalize, "launches")}
 
 
 def launch_counts() -> dict:

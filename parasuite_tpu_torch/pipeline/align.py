@@ -43,6 +43,7 @@ from parasuite_tpu_torch.ops.aligner import (AlignResult, CandidateTable,
                                              pack_codes_host,
                                              unpack_result_host)
 from parasuite_tpu_torch.ops.compiled import CompiledStep
+from parasuite_tpu_torch.ops.cuda_finalize import check_entry_width
 from parasuite_tpu_torch.ops.cuda_seed import check_row_width
 from parasuite_tpu_torch.ops.device_index import (DeviceIndex, ScoreParams,
                                                   min_score_table)
@@ -384,9 +385,11 @@ class AlignerEngine:
                  cfg: AlignConfig, s_tensor: np.ndarray | None = None,
                  xa_tags: bool = False, xa_limit: int = 10, device="cuda"):
         self.device = resolve_device(device)
-        # a row wider than the select kernel takes is refused here, on
-        # every device, before any index is uploaded
+        # a row wider than the select kernel takes, or more candidate
+        # entries a read than the finalize kernel takes, is refused here,
+        # on every device, before any index is uploaded
         check_row_width(cfg)
+        check_entry_width(cfg)
         self.ref = ref
         self.sam_ref = ref  # reference used for SAM emission
         self.cfg = cfg

@@ -106,3 +106,103 @@ def extend_case(W: int, L: int, seed: int = 0) -> dict:
     return {"ref": ref, "oriented": oriented, "lengths": lengths,
             "cand": cand, "s_fwd": table(), "s_comp": table(), "go": go,
             "ge": ge}
+
+
+# (entries a read n = 2C, the combined step's src / nm_pos / nm_strand):
+# every register width of the finalize kernel (E = 1, 2, 4, 8 a lane),
+# ragged and full, both tiers
+FINALIZE_CASES = [(2, False), (16, False), (16, True), (32, False),
+                  (40, True), (64, True), (254, False), (254, True)]
+FINALIZE_READS = 96
+FINALIZE_L = 50
+FINALIZE_NEG = -(1 << 28)   # ops/cuda_extend.py NEG
+
+
+def finalize_case(n: int, combined: bool, seed: int = 0) -> dict:
+    """One finalize_core call that stresses the selection and its window ->
+    numpy inputs: ref_seq int8 [G]; chrom_starts / chrom_ends int32 [3];
+    oriented int32 [B, 2, L]; lengths int32 [B]; valid / ug_eq bool [B, n];
+    strand int32 ([n], the plain step's row every read shares, or [B, n]
+    with combined); pos_key / dps / diag int32 [B, n]; n_candidates int32
+    [B]; mapq_sub int32 [256]; with combined src / nm_pos / nm_strand int32
+    [B, n] and a learned-looking mapq_sub.
+
+    Tie-heavy: keys from three positions a read on both strands, scores
+    from three values, so twins and equal bests abound (with src, on both
+    sources). The reads are the reference at their first key, with
+    substitutions and T->C / A->G, so NM and T->C count. The first and last
+    chromosomes reach past the reference's ends, so mapped windows read off
+    them. Rows: all invalid; length 0; all N; keys below 0 and past G;
+    spans across each chromosome boundary; every entry valid and below
+    NEG (the best is NEG, no entry at it); the rest at random lengths."""
+    rng = np.random.default_rng([seed, n, int(combined)])
+    B, L = FINALIZE_READS, FINALIZE_L
+    G = 3800
+    ref = rng.integers(0, 4, G).astype(np.int8)
+    ref[rng.random(G) < 0.02] = 4
+    ref[1000:1200] = 4                       # spacers
+    ref[2400:2600] = 4
+    chrom_starts = np.asarray([-40, 1200, 2600], np.int32)
+    chrom_ends = np.asarray([1000, 2400, G + 40], np.int32)
+    lengths = rng.integers(L - 12, L + 1, B).astype(np.int32)
+    anchors = rng.integers(-60, G + 60, B)
+    anchors[5:8] = (-L // 2, G - L // 2, G + 5)          # off either end
+    anchors[8:14] = np.repeat(chrom_ends[:2], 3) - L // 2  # across a boundary
+    anchors[14:17] = chrom_starts[1:].repeat(2)[:3] - 3
+    keys = anchors[:, None] + rng.integers(-1, 2, (B, 3)) * \
+        np.asarray([0, 1, 7])
+    keys[:, 1] = anchors + rng.integers(-2, 3, B)
+    kidx = rng.integers(0, 3, (B, n))
+    pos_key = np.take_along_axis(keys, kidx, axis=1)
+    strand = (np.broadcast_to(np.arange(n) >= n // 2, (B, n)) if not combined
+              else rng.random((B, n)) < 0.5).astype(np.int32)
+
+    def window(a):
+        i = a + np.arange(L)
+        return np.where((i >= 0) & (i < G), ref[np.clip(i, 0, G - 1)], 4)
+
+    oriented = np.empty((B, 2, L), np.int32)
+    for b in range(B):
+        w = window(int(anchors[b]))
+        sub = rng.random(L) < 0.06
+        oriented[b, 0] = np.where(sub, (w + 1) % 4, np.where(
+            (w == 3) & (rng.random(L) < 0.3), 1, w))     # T -> C
+        oriented[b, 1] = np.where(sub, (w + 2) % 4, np.where(
+            (w == 0) & (rng.random(L) < 0.3), 2, w))     # A -> G
+        oriented[b, :, lengths[b]:] = 4
+    oriented[rng.random((B, 2, L)) < 0.01] = 4
+    oriented[2] = 4                                      # all N
+    lengths[1] = 0
+
+    valid = rng.random((B, n)) < 0.7
+    valid[0] = False                                     # all invalid
+    dps = rng.choice(np.asarray([20, 25, 30, 30]), (B, n)).astype(np.int64)
+    # half the rows: one (strand, key) above the rest, so X0 = 1 and MAPQ
+    # reads mapq_sub
+    one = rng.random(B) < 0.5
+    top = (kidx == 0) & (strand == rng.integers(0, 2, B)[:, None])
+    dps[one] = np.where(top[one], 30, rng.choice(np.asarray([20, 25]),
+                                                  (int(one.sum()), n)))
+    dps[~valid & (rng.random((B, n)) < 0.5)] = FINALIZE_NEG
+    valid[4] = True
+    dps[4] = FINALIZE_NEG - rng.integers(1, 3, n)        # below NEG
+    pos_key[4] = anchors[4] + np.arange(n)
+    out = {"ref_seq": ref, "chrom_starts": chrom_starts,
+           "chrom_ends": chrom_ends, "oriented": oriented,
+           "lengths": lengths, "valid": valid,
+           "pos_key": pos_key.astype(np.int32), "dps": dps.astype(np.int32),
+           "ug_eq": rng.random((B, n)) < 0.8,
+           "diag": (pos_key + rng.integers(-5, 6, (B, n))).astype(np.int32),
+           "n_candidates": rng.integers(0, n + 1, B).astype(np.int32)}
+    if not combined:
+        out["strand"] = strand[0].copy()
+        out["mapq_sub"] = np.minimum(np.arange(256) * 4, 23).astype(np.int32)
+        return out
+    out["strand"] = strand
+    out["src"] = rng.integers(0, 2, (B, n)).astype(np.int32)
+    shift = rng.choice(np.asarray([0, 0, 3, -L - 5, G]), (B, n))
+    out["nm_pos"] = (pos_key + shift).astype(np.int32)
+    out["nm_strand"] = np.where(rng.random((B, n)) < 0.7, out["strand"],
+                                1 - out["strand"]).astype(np.int32)
+    out["mapq_sub"] = rng.integers(0, 30, 256).astype(np.int32)
+    return out

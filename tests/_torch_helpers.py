@@ -52,3 +52,35 @@ def assert_same_output(got_dir, want_dir, name):
             np.load(got_dir / name.replace(".progress.json", ".counts.npy")))
         assert got.pop("indels")["n_gapped"] >= 0
     assert got == json.loads(want), name
+
+
+def finalize_args(case: dict, device) -> tuple:
+    """testing.finalize_case's arrays on `device` -> (args, kwargs) of
+    ops/aligner.py::finalize_core / cuda_finalize.finalize_select. A strand
+    row of the plain step is broadcast to every read (expand, row stride
+    0), as aligner.finalize passes it; DeviceIndex and ScoreParams carry
+    empty k-mer and score tables, which the selection never reads."""
+    import torch
+
+    from parasuite_tpu_torch.config import AlignConfig
+    from parasuite_tpu_torch.ops.device_index import DeviceIndex, ScoreParams
+
+    def t(name):
+        return torch.from_numpy(case[name]).to(device)
+
+    B, n = case["valid"].shape
+    z32 = torch.zeros(1, dtype=torch.int32, device=device)
+    didx = DeviceIndex(ref_seq=t("ref_seq"), bucket_starts=z32,
+                       positions=z32, chrom_starts=t("chrom_starts"),
+                       chrom_ends=t("chrom_ends"))
+    sprof = ScoreParams(s_fwd=z32, s_comp=z32, mapq_sub=t("mapq_sub"))
+    strand = t("strand")
+    if strand.dim() == 1:
+        strand = strand[None, :].expand(B, n)
+    cfg = AlignConfig(max_read_len=case["oriented"].shape[2],
+                      max_candidates=n // 2)
+    args = (t("oriented"), t("lengths"), t("valid"), strand, t("pos_key"),
+            t("dps"), t("ug_eq"), t("diag"), t("n_candidates"), didx, sprof,
+            cfg)
+    kwargs = {k: t(k) for k in ("src", "nm_pos", "nm_strand") if k in case}
+    return args, kwargs

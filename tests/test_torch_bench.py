@@ -189,7 +189,8 @@ def test_distributed_tool_two_processes_equal_one(tmp_path):
     assert line["same_output"]
     assert line["sam_sha256_1proc"] == line["sam_sha256_2proc"]
     assert line["launches"] == {"seed_select": 0, "select_candidates": 0,
-                                "extend_candidates": 0}   # plain on the CPU
+                                "extend_candidates": 0,
+                                "finalize_select": 0}     # plain on the CPU
     assert list(tmp_path.iterdir()) == []                 # its world is gone
 
 

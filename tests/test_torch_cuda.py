@@ -34,14 +34,15 @@ from parasuite_tpu_torch.config import AlignConfig
 from parasuite_tpu_torch.errormodel import flat_score_tensor
 from parasuite_tpu_torch.index import KmerIndex, PackedReference
 from parasuite_tpu_torch.ops import aligner as tx
-from parasuite_tpu_torch.ops import cuda_extend, cuda_seed
+from parasuite_tpu_torch.ops import cuda_extend, cuda_finalize, cuda_seed
 from parasuite_tpu_torch.ops.device_index import (DeviceIndex, ScoreParams,
                                                   min_scores_host)
-from parasuite_tpu_torch.testing import (EXTEND_CASES, SELECT_CASES,
-                                         extend_case, select_case_rows)
+from parasuite_tpu_torch.testing import (EXTEND_CASES, FINALIZE_CASES,
+                                         SELECT_CASES, extend_case,
+                                         finalize_case, select_case_rows)
 
 from conftest import sample_reads
-from _torch_helpers import to_port
+from _torch_helpers import finalize_args, to_port
 
 pytestmark = pytest.mark.cuda
 
@@ -103,19 +104,21 @@ def _to(obj, dev):
 
 
 def _launches() -> tuple:
-    """(seeded select, select over rows of diagonals, extend) launches so
-    far."""
+    """(seeded select, select over rows of diagonals, extend, finalize)
+    launches so far."""
     return (cuda_seed.seeded_launches, cuda_seed.launches,
-            cuda_extend.launches)
+            cuda_extend.launches, cuda_finalize.launches)
 
 
 def _since(before: tuple) -> tuple:
     return tuple(a - b for a, b in zip(_launches(), before))
 
 
-# a step's graph or eager call: one seeded select, one extend
-STEP = {"seed_select": 1, "select_candidates": 0, "extend_candidates": 1}
-NONE = {"seed_select": 0, "select_candidates": 0, "extend_candidates": 0}
+# a step's graph or eager call: one seeded select, one extend, one finalize
+STEP = {"seed_select": 1, "select_candidates": 0, "extend_candidates": 1,
+        "finalize_select": 1}
+NONE = {"seed_select": 0, "select_candidates": 0, "extend_candidates": 0,
+        "finalize_select": 0}
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -319,7 +322,7 @@ def test_seeded_select_equals_the_plain_pair_on_card(cuda, name):
     cfg, didx, oriented, tlens = _seeded_case(name, cuda)
     before = _launches()
     got = cuda_seed.seed_select(oriented, tlens, didx, cfg)
-    assert _since(before) == (1, 0, 0)
+    assert _since(before) == (1, 0, 0, 0)
     diags = cuda_seed.seed_diagonals(oriented, tlens, didx, cfg)
     want = cuda_seed.select_candidates_plain(diags, cfg)
     torch.cuda.synchronize()
@@ -335,9 +338,53 @@ def test_seeded_select_of_no_reads_on_card(cuda):
     cfg, didx, oriented, tlens = _seeded_case("bench_adaptive", cuda)
     before = _launches()
     cand, valid = cuda_seed.seed_select(oriented[:0], tlens[:0], didx, cfg)
-    assert _since(before) == (0, 0, 0)
+    assert _since(before) == (0, 0, 0, 0)
     assert cand.shape == valid.shape == (0, cfg.max_candidates)
     assert (cand.dtype, valid.dtype) == (torch.int32, torch.bool)
+
+
+@pytest.mark.parametrize("n,combined", FINALIZE_CASES)
+def test_finalize_kernel_equals_finalize_core_on_card(cuda, n, combined):
+    """finalize_select's one launch equals finalize_core on the same CUDA
+    tensors, bit for bit in every AlignResult field and in best_idx, over
+    testing.finalize_case's rows (n = 2 .. 254 entries a read; tie-heavy
+    keys and scores on both strands, all-invalid, length-0 and all-N rows,
+    windows off either end of ref_seq, spans across a chromosome boundary,
+    three chromosomes; with combined src / nm_pos / nm_strand and a learned
+    mapq_sub). The plain step's strand row broadcast (row stride 0) gives
+    what the same strands laid out row by row give."""
+    case = finalize_case(n, combined)
+    args, kw = finalize_args(case, cuda)
+    before = _launches()
+    got = cuda_finalize.finalize_select(*args, **kw)
+    assert _since(before) == (0, 0, 0, 1)
+    want = tx.finalize_core(*args, **kw)
+    laid = list(args)
+    laid[3] = args[3].contiguous()
+    again = cuda_finalize.finalize_select(*laid, **kw)
+    torch.cuda.synchronize()
+    for k, (g, w, a) in enumerate(zip((*got[0], got[1]), (*want[0], want[1]),
+                                      (*again[0], again[1]))):
+        assert g.dtype == w.dtype and torch.equal(g, w), k
+        assert torch.equal(a, w), k
+    assert got[0].n_candidates is args[8]
+    mapped = want[0].mapped
+    assert bool(mapped.any()) and not bool(mapped.all())
+    assert bool((want[0].x0 == 1).any()) and bool(want[0].tc_count.any())
+
+
+def test_finalize_kernel_of_no_reads_on_card(cuda):
+    """No reads: empty [0] outputs of finalize_core's dtypes and no
+    launch."""
+    args, kw = finalize_args(finalize_case(16, True), cuda)
+    empty = [a[:0] if isinstance(a, torch.Tensor) else a for a in args]
+    kw = {k: v[:0] for k, v in kw.items()}
+    before = _launches()
+    res, best_idx = cuda_finalize.finalize_select(*empty, **kw)
+    assert _since(before) == (0, 0, 0, 0)
+    want, want_idx = tx.finalize_core(*empty, **kw)
+    for g, w in zip((*res, best_idx), (*want, want_idx)):
+        assert g.shape == (0,) and g.dtype == w.dtype
 
 
 def test_extend_kernel_uses_dpx_at_every_band_width(cuda):
@@ -404,8 +451,8 @@ def _wire(cfg, codes, lengths, dev):
 @pytest.mark.parametrize("name", ["bench_L50_W5", "band15_n448"])
 def test_wire_step_on_card_equals_cpu(cuda, name, tiny_ref):
     """align_batch_packed on the card: the PackedResult bytes and the fused
-    counts equal the CPU run's, one launch of the seeded select kernel and
-    one of the extend kernel a step, and the
+    counts equal the CPU run's, one launch of the seeded select kernel,
+    one of the extend kernel and one of the finalize kernel a step, and the
     unpacked result equals align_batch on the card field by field."""
     from parasuite_tpu_torch.pipeline.align import fetch_host
 
@@ -418,7 +465,7 @@ def test_wire_step_on_card_equals_cpu(cuda, name, tiny_ref):
     card = tx.align_batch_packed(d_didx, d_sprof,
                                  *_wire(cfg, codes, lengths, cuda), cfg,
                                  with_counts=True)
-    assert _since(before) == (1, 0, 1)
+    assert _since(before) == (1, 0, 1, 1)
     (c_host,), (g_host,) = fetch_host(cpu[0]), fetch_host(card[0])
     for c, g in zip(c_host, g_host):
         assert c.tobytes() == g.tobytes()
@@ -436,8 +483,10 @@ def test_wire_step_on_card_equals_cpu(cuda, name, tiny_ref):
 
 @pytest.mark.parametrize("name", ["bench_L50_W5", "band15_n448"])
 def test_impl_switches_on_card(cuda, name, tiny_ref):
-    """On the card "jnp" takes the plain versions (no launch) and "pallas"
-    the kernels; both give "auto"'s PackedResult byte for byte."""
+    """On the card "jnp" takes the plain seed, select and extend (no
+    launch of theirs) and "pallas" their kernels; both give "auto"'s
+    PackedResult byte for byte. The finalize kernel, which no cfg field
+    selects, launches once a step under each."""
     from parasuite_tpu_torch.pipeline.align import fetch_host
 
     cfg, didx, sprof, codes, lengths = _inputs(name, tiny_ref)
@@ -450,7 +499,7 @@ def test_impl_switches_on_card(cuda, name, tiny_ref):
         (outs[impl],) = fetch_host(tx.align_batch_packed(d_didx, d_sprof,
                                                          *wire, c))
         want = 0 if impl == "jnp" else 1
-        assert _since(before) == (want, 0, want), impl
+        assert _since(before) == (want, 0, want, 1), impl
     for impl in ("jnp", "pallas"):
         for a, b in zip(outs["auto"], outs[impl]):
             assert a.tobytes() == b.tobytes(), impl
@@ -592,7 +641,7 @@ def test_dist_step_on_card_equals_cpu(cuda, n_replicas, tiny_ref):
     for _ in range(2):     # the second call finds its replicas in place
         before = _launches()
         got, counts = step(*on_card, codes, lengths, ms)
-        assert _since(before) == (n_replicas, 0, n_replicas)
+        assert _since(before) == (n_replicas, 0, n_replicas, n_replicas)
         assert counts.dtype == torch.int64 and counts.device == card0
         assert torch.equal(counts.cpu(), want_counts)
         for field in want._fields:
@@ -633,7 +682,7 @@ def test_sharded_step_on_card_equals_cpu(cuda):
                          ScoreParams.from_tensor(s, cfg, dev), codes,
                          lengths, ms)
         want = 0 if dev == "cpu" else 2
-        assert _since(before) == (want, 0, want)
+        assert _since(before) == (want, 0, want, want)
     for k, w in outs["cpu"].items():
         g = outs[card0][k]
         assert g.device == card0 and g.dtype == w.dtype, k
@@ -678,6 +727,24 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(cuda, tiny_ref):
     with pytest.raises(ValueError, match="different devices"):
         cuda_extend.extend_candidates(oriented, tlens.cpu(), cand, didx,
                                       sprof, cfg)
+    args, kw = finalize_args(finalize_case(16, True), cuda)
+    fin = cuda_finalize.finalize_select
+
+    def with_arg(i, x):
+        return [x if k == i else a for k, a in enumerate(args)]
+
+    with pytest.raises(ValueError, match="pos_key must be torch.int32"):
+        fin(*with_arg(4, args[4].long()), **kw)
+    with pytest.raises(ValueError, match="strand must be contiguous"):
+        fin(*with_arg(3, args[3].t().contiguous().t()), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fin(*with_arg(5, args[5].t().contiguous().t()), **kw)
+    with pytest.raises(ValueError, match="different devices"):
+        fin(*with_arg(1, args[1].cpu()), **kw)
+    with pytest.raises(ValueError, match="takes 1 to 256"):
+        wide = [a.repeat(1, 17) if k in (2, 3, 4, 5, 6, 7) else a
+                for k, a in enumerate(args)]
+        fin(*wide, **{k: v.repeat(1, 17) for k, v in kw.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -765,15 +832,16 @@ def test_graphed_steps_equal_eager_on_card(cuda, kind, port_ref):
 
 def test_replays_count_their_launches(cuda, port_ref):
     """The first call of a key (its eager warm-up) and every replay add one
-    launch of the seeded select kernel and one of the extend kernel, and
-    none of the select kernel over rows of diagonals; the capture adds none.
-    The graph holds one seeded launch and no row launch: engagement
-    seeded / (seeded + rows) is 1."""
+    launch of the seeded select kernel, one of the extend kernel and one of
+    the finalize kernel, and none of the select kernel over rows of
+    diagonals; the capture adds none. The graph holds one seeded launch and
+    no row launch: engagement seeded / (seeded + rows) is 1; and one
+    finalize launch a step: its engagement is 1."""
     eng, _tier, _name, run, batches = _graph_case("packed", port_ref)
     before = _launches()
     for k, b in enumerate(batches[:4]):
         run(*b)
-        assert _since(before) == (k + 1, 0, k + 1)
+        assert _since(before) == (k + 1, 0, k + 1, k + 1)
     step = eng.compiled_steps()["packed k=8"]
     assert step.graphs == 1 and step.capture_ms > 0
     (entry,) = step.entries.values()
@@ -906,15 +974,16 @@ def test_graphed_multi_device_steps_equal_eager_on_card(cuda, kind,
 @pytest.mark.parametrize("kind", ["counts", "sharded"])
 def test_multi_device_replays_count_their_launches(cuda, kind, tiny_ref):
     """Card 0 given twice: the first call (each slot's eager warm-up) and
-    every replay add two launches of the seeded select kernel and of the
-    extend kernel, one a slot; the captures add none, and each slot holds
-    one graph."""
+    every replay add two launches of the seeded select kernel, of the
+    extend kernel and of the finalize kernel, one a slot; the captures add
+    none, and each slot holds one graph."""
     card0 = torch.device("cuda", 0)
     step, call, batches, _sprof = _multi_step(kind, [card0] * 2, tiny_ref)
     before = _launches()
     for k, b in enumerate(batches[:4]):
         call(*b)
-        assert _since(before) == (2 * (k + 1), 0, 2 * (k + 1))
+        assert _since(before) == (2 * (k + 1), 0, 2 * (k + 1),
+                                  2 * (k + 1))
     steps = step.compiled_steps()
     assert len(steps) == (3 if kind == "sharded" else 2)
     assert all(s.graphs == 1 and s.capture_ms > 0 for s in steps.values())

@@ -25,12 +25,15 @@ from parasuite_tpu.ops.device_index import ScoreParams as JScoreParams
 from parasuite_tpu.ops.pallas_extend import extend_candidates_pallas
 from parasuite_tpu.ops.pallas_seed import select_candidates_pallas
 from parasuite_tpu_torch import convert
-from parasuite_tpu_torch.ops import _build, cuda_extend, cuda_seed
+from parasuite_tpu_torch.ops import (_build, cuda_extend, cuda_finalize,
+                                     cuda_seed)
 from parasuite_tpu_torch.ops import aligner as tx
 from parasuite_tpu_torch.ops.device_index import DeviceIndex, ScoreParams
-from parasuite_tpu_torch.testing import SELECT_CASES, select_case_rows
+from parasuite_tpu_torch.testing import (FINALIZE_CASES, SELECT_CASES,
+                                         finalize_case, select_case_rows)
 
 from conftest import sample_reads
+from _torch_helpers import finalize_args
 
 torch.set_num_threads(1)
 
@@ -131,6 +134,7 @@ def test_wrappers_route_cpu_tensors_to_plain(monkeypatch):
     monkeypatch.setattr(_build, "build", no_build)
     monkeypatch.setattr(cuda_seed, "launches", 0)
     monkeypatch.setattr(cuda_extend, "launches", 0)
+    monkeypatch.setattr(cuda_finalize, "launches", 0)
     codes, lengths, _, _, td, ts = _world(502, biased=False)
     tcodes, tlens = torch.from_numpy(codes), torch.from_numpy(lengths)
     oriented = tx.orient_reads(tcodes, tlens)
@@ -145,7 +149,14 @@ def test_wrappers_route_cpu_tensors_to_plain(monkeypatch):
                                                     td, ts, T_TINY)
     for g, w in zip(ext, ext_plain):
         assert torch.equal(g, w)
+    for n, combined in ((16, False), (16, True)):
+        args, kw = finalize_args(finalize_case(n, combined), "cpu")
+        got = cuda_finalize.finalize_select(*args, **kw)
+        want = tx.finalize_core(*args, **kw)
+        for g, w in zip((*got[0], got[1]), (*want[0], want[1])):
+            assert torch.equal(g, w)
     assert cuda_seed.launches == 0 and cuda_extend.launches == 0
+    assert cuda_finalize.launches == 0
     assert _build._lib is None
 
 
@@ -165,6 +176,7 @@ def test_import_does_not_build():
         "subprocess.run = subprocess.Popen = refuse\n"
         "ctypes.CDLL = refuse\n"
         "import parasuite_tpu_torch.cli, parasuite_tpu_torch.ops.aligner\n"
+        "import parasuite_tpu_torch.ops.cuda_finalize\n"
         "import parasuite_tpu_torch.ops.profile_update\n"
         "import parasuite_tpu_torch.pipeline.align\n"
         "import parasuite_tpu_torch.pipeline.stream\n"
@@ -177,7 +189,7 @@ def test_import_does_not_build():
     assert p.returncode == 0 and p.stdout.strip() == "ok", p.stderr[-2000:]
     assert _build.FLAGS[:2] == ["-gencode", "arch=compute_90a,code=sm_90a"]
     assert [q.name for q in _build._sources()] == [
-        "extend_candidates.cu", "select_candidates.cu"]
+        "extend_candidates.cu", "finalize_select.cu", "select_candidates.cu"]
 
 
 
@@ -374,3 +386,131 @@ def test_seeded_rows_emulated_equal_seed_diagonals(case):
                                       err_msg=f"row {r}")
         filled += int((want != cuda_seed.I32MAX).sum())
     assert filled > 0
+
+
+# ---------------------------------------------------------------------------
+# finalize's selection in one warp a read (cuda_finalize.finalize_select)
+# ---------------------------------------------------------------------------
+
+def _wrap32(x):
+    """int64 -> the int32 value a wrapping int32 sum gives, as int64."""
+    return (np.asarray(x, np.int64) + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def _finalize_warp(case: dict, b: int) -> dict:
+    """csrc/finalize_select.cu's finalize_kernel for read b, step by step:
+    entry r * 32 + lane in register r of each lane ([E, 32] arrays), the
+    dedupe's broadcasts in the kernel's order, the warp reductions with the
+    kernel's values for entries past n, ballots for X0 / X1 and the window's
+    NM and T->C, the picks at best_idx, the binary search and the masks."""
+    n = case["valid"].shape[1]
+    E = 1 << max(0, (n - 1).bit_length() - 5)
+    assert E in (1, 2, 4, 8) and 32 * E >= n
+    NEG, IMAX, IMIN = tx.NEG, 2 ** 31 - 1, -2 ** 31
+    e = np.arange(E)[:, None] * 32 + np.arange(32)[None, :]
+    in_row = e < n
+    ec = np.minimum(e, n - 1)
+    strand_row = (case["strand"] if case["strand"].ndim == 1
+                  else case["strand"][b])
+    ok = in_row & case["valid"][b][ec]
+    st = np.where(in_row, strand_row[ec], 0).astype(np.int64)
+    pk = np.where(in_row, case["pos_key"][b][ec], 0).astype(np.int64)
+    sc = np.where(in_row, case["dps"][b][ec], 0).astype(np.int64)
+    has_src = "src" in case
+    sr = (np.where(in_row, case["src"][b][ec], 0) if has_src
+          else np.zeros_like(e)).astype(np.int64)
+    dup = np.zeros_like(in_row)
+    for r2 in range(E):
+        for j in range(min(32, n - r2 * 32)):
+            if not ok[r2, j]:
+                continue
+            e2 = r2 * 32 + j
+            st2, pk2, sc2, sr2 = st[r2, j], pk[r2, j], sc[r2, j], sr[r2, j]
+            tie = ((sr2 < sr) | ((sr2 == sr) & (e2 < e))) if has_src \
+                else e2 < e
+            better = (sc2 > sc) | ((sc2 == sc) & tie)
+            dup |= (st2 == st) & (pk2 == pk) & better
+    uv = ok & ~dup
+    has = bool(uv.any())
+    best = np.where(in_row, np.where(uv, sc, NEG), IMIN).max(axis=0).max()
+    at_best = uv & (sc == best)
+    best_strand = np.where(in_row, np.where(at_best, st, 2), IMAX).min()
+    at_bs = at_best & (st == best_strand)
+    best_pos = np.where(at_bs, pk, IMAX).min()
+    first = np.where(at_bs & (pk == best_pos), e, IMAX).min(axis=0).min()
+    bi = 0 if first == IMAX else int(first)
+    x0 = sum(int(np.count_nonzero(at_best[r])) for r in range(E))
+    x1 = sum(int(np.count_nonzero(uv[r] & (sc[r] < best)))
+             for r in range(E))
+    mapq = 0 if x0 > 1 else 37 if x1 == 0 else max(
+        23 - int(case["mapq_sub"][min(max(x1, 0), 255)]), 0)
+
+    sel_strand = int(strand_row[bi])
+    sel_pos = int(case["pos_key"][b, bi])
+    sel_ug = bool(case["ug_eq"][b, bi])
+    sel_nm_pos = int(case["nm_pos"][b, bi]) if "nm_pos" in case else sel_pos
+    sel_nm_strand = (int(case["nm_strand"][b, bi]) if "nm_strand" in case
+                     else sel_strand)
+    starts, ends = case["chrom_starts"], case["chrom_ends"]
+    lo, hi = 0, len(starts)
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if starts[mid] <= sel_pos:
+            lo = mid + 1
+        else:
+            hi = mid
+    ci = min(max(lo - 1, 0), len(starts) - 1)
+    length = int(case["lengths"][b])
+    mapped = (has and sel_pos >= starts[ci]
+              and _wrap32(_wrap32(sel_pos + length) - 1) < ends[ci]
+              and length > 0)
+    nm = tc = 0
+    if mapped:
+        ref, L = case["ref_seq"], case["oriented"].shape[2]
+        G = ref.shape[0]
+        read = case["oriented"][b, int(sel_nm_strand != 0)]
+        span = min(L, length)
+        lane = np.arange(32)
+        for i0 in range(0, span, 32):
+            i = i0 + lane
+            act = i < span
+            ridx = _wrap32(sel_nm_pos + i)
+            inr = (ridx >= 0) & (ridx < G)
+            rb = np.where(inr, ref[np.clip(ridx, 0, G - 1)], 4)
+            rd = np.where(act, read[np.minimum(i, L - 1)], 0)
+            mm = act & ((rb != rd) | (rb == 4) | (rd == 4))
+            hit = act & (((rb == 0) & (rd == 2)) if sel_nm_strand == 1
+                         else ((rb == 3) & (rd == 1)))
+            nm += int(np.count_nonzero(mm))
+            tc += int(np.count_nonzero(hit))
+    return {"mapped": mapped, "strand": sel_strand if mapped else 0,
+            "pos": sel_pos if mapped else -1,
+            "score": int(case["dps"][b, bi]) if mapped else NEG,
+            "mapq": mapq if mapped else 0, "x0": x0 if mapped else 0,
+            "x1": x1 if mapped else 0, "ug_equal": sel_ug if mapped else True,
+            "nm": nm if mapped else 0,
+            "diag": int(case["diag"][b, bi]) if mapped else 0,
+            "n_candidates": int(case["n_candidates"][b]),
+            "tc_count": tc if mapped and sel_ug else 0, "best_idx": bi}
+
+
+@pytest.mark.parametrize("n,combined", FINALIZE_CASES)
+def test_finalize_warp_emulated_equals_finalize_core(n, combined):
+    """The finalize kernel's per-lane algorithm, emulated in numpy read by
+    read (_finalize_warp), equals finalize_core on every AlignResult field
+    and best_idx over testing.finalize_case's tie-heavy rows (every
+    register width, with and without src / nm_pos / nm_strand); the cases
+    reach every branch of the selection and of MAPQ."""
+    case = finalize_case(n, combined)
+    args, kw = finalize_args(case, "cpu")
+    res, best_idx = tx.finalize_core(*args, **kw)
+    want = {**{f: v.numpy() for f, v in zip(res._fields, res)},
+            "best_idx": best_idx.numpy()}
+    for b in range(case["valid"].shape[0]):
+        got = _finalize_warp(case, b)
+        for f, v in got.items():
+            assert v == want[f][b], (f, b, v, want[f][b])
+    assert set(want["mapq"]) - {0, 37}          # MAPQ from mapq_sub
+    assert want["mapped"].any() and not want["mapped"].all()
+    assert (want["x0"] == 1).any() and (want["x0"] > 1).any()
+    assert want["tc_count"].any() and want["nm"].any()

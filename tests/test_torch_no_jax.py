@@ -281,6 +281,7 @@ def test_no_source_file_imports_jax():
     pattern = re.compile(
         r"\b(import|from)\s+(jax|parasuite_tpu)([\s.,]|$)", re.MULTILINE)
     files = sorted((REPO / "parasuite_tpu_torch").rglob("*.py"))
+    assert REPO / "parasuite_tpu_torch" / "ops" / "cuda_finalize.py" in files
     tools = sorted((REPO / "tools").glob("torch_*.py"))
     tools.append(REPO / "tools" / "_torch_bench.py")
     assert len(tools) == 16

@@ -441,6 +441,23 @@ def test_engine_refuses_rows_past_the_kernel(kw, flags, tiny_ref, tiny_index,
     cuda_seed.check_row_width(ok)
 
 
+def test_engine_refuses_more_entries_than_the_finalize_kernel(
+        tiny_ref, tiny_index, small_cfg):
+    """Past 256 candidate entries a read (max_candidates 129) the engine
+    refuses when it is built, naming the flag and the kernel's limit; at
+    128 candidates it is taken."""
+    from parasuite_tpu_torch.ops import cuda_finalize
+    from parasuite_tpu_torch.pipeline.align import AlignerEngine
+
+    cfg = to_port(small_cfg).replace(max_candidates=129)
+    with pytest.raises(ValueError, match="--max-candidates 129 gives 258") \
+            as err:
+        AlignerEngine(to_port(tiny_ref), to_port(tiny_index), cfg,
+                      device="cpu")
+    assert str(cuda_finalize.MAX_ENTRIES) in str(err.value)
+    cuda_finalize.check_entry_width(cfg.replace(max_candidates=128))
+
+
 def test_two_processes_build_the_native_library_together(tmp_path):
     """Two processes started together on a copy of native/ with no built
     library both end with available() true: each builds under a name of its

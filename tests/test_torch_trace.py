@@ -390,11 +390,12 @@ def test_trace_cell_tool_on_a_tiny_cell(tmp_path, capsys):
     assert "median_on_over_off" in out["cost"]
 
 
-def test_step_memory_tool_on_a_tiny_cell(tmp_path, capsys):
-    """tools/torch_step_memory.py on a tiny copy of the parclip50 cell on
-    the CPU: the wire step cut at its stages, seed and select as one
-    (seed_select), each batch size's eager, staged and graphed record; no
-    byte is counted without a card, and the gpu field says cpu."""
+def _step_memory_tiny(tmp_path, capsys, config: str, traffic: str,
+                      **update) -> dict:
+    """tools/torch_step_memory.py on the CPU on a tiny copy of the cell of
+    configuration `config` and mix `traffic` (600 kbp, batches of 512 and
+    64 reads) -> its JSON line; `update` goes into the configuration's
+    groups."""
     import shutil
 
     sys.path.insert(0, str(ROOT / "tools"))
@@ -403,7 +404,7 @@ def test_step_memory_tool_on_a_tiny_cell(tmp_path, capsys):
     shutil.copytree(BENCH, tmp_path / "benchmark",
                     ignore=shutil.ignore_patterns("tests", "__pycache__"))
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
-    conf = json.loads((BENCH / "configs" / "chr22_align.json").read_text())
+    conf = json.loads((BENCH / "configs" / f"{config}.json").read_text())
     conf["genome"].update(length=600_000, n_gap_lead=100_000,
                           n_gap_internal=1, satellite_bases=2_000,
                           segdup_blocks=1)
@@ -411,21 +412,62 @@ def test_step_memory_tool_on_a_tiny_cell(tmp_path, capsys):
                                    f[4]] for f in conf["genome"]["families"]]
     conf["align"]["batch_size"] = BATCH
     conf["library_reads"] = N_READS
+    for key, value in update.items():
+        conf[key].update(value)
     (tmp_path / "benchmark" / "configs" / "tiny.json").write_text(
         json.dumps(conf))
-    spec["workloads"] = [{"name": "tiny.parclip50", "config": "tiny",
-                          "traffic": "parclip50", "chips": 1, "why": "t"}]
+    spec["workloads"] = [{"name": f"tiny.{traffic}", "config": "tiny",
+                          "traffic": traffic, "chips": 1, "why": "t"}]
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
-    assert tool.main(["--workload", "tiny.parclip50", "--seed", str(SEED),
+    assert tool.main(["--workload", f"tiny.{traffic}", "--seed", str(SEED),
                       "--batches", f"{BATCH},64", "--device", "cpu",
                       "--bench", str(tmp_path / "benchmark")]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert (out["device"], out["gpu"], out["engine_allocated"]) == \
         ("cpu", "cpu", 0)
+    assert out["program"] == str(ROOT)
     assert list(out["batches"]) == [str(BATCH), "64"]
     for rec in out["batches"].values():
-        assert list(rec["stages"]) == ["unpack", "orient", "seed_select",
-                                       "extend", "finalize", "pack"]
         assert rec["peak_stage"] in rec["stages"]
         assert rec["eager_peak_above_step"] == 0
         assert rec["graphed_peak_above_step"] == 0
+    return out
+
+
+def test_step_memory_tool_on_a_tiny_cell(tmp_path, capsys):
+    """tools/torch_step_memory.py on a tiny copy of the parclip50 cell on
+    the CPU: the wire step cut at its stages, seed and select as one
+    (seed_select), finalize as its entries' preamble and the selection
+    (finalize_select), each batch size's eager, staged and graphed record;
+    no byte is counted without a card, and the gpu field says cpu."""
+    out = _step_memory_tiny(tmp_path, capsys, "chr22_align", "parclip50")
+    assert not out["with_counts"]
+    for rec in out["batches"].values():
+        assert list(rec["stages"]) == ["unpack", "orient", "seed_select",
+                                       "extend", "finalize_entries",
+                                       "finalize_select", "pack"]
+
+
+def test_step_memory_tool_on_a_tiny_combined_cell(tmp_path, capsys):
+    """The same tool on a tiny copy of the junction50 cell: the combined
+    engine's projected step (align_batch_combined_packed) cut at its
+    stages, its finalize with src, nm_pos and nm_strand between the genome
+    projection and the compactions."""
+    out = _step_memory_tiny(tmp_path, capsys, "chr22_combined",
+                            "junction50", annotation={"genes": 20})
+    for rec in out["batches"].values():
+        assert list(rec["stages"]) == ["unpack", "orient", "seed_select",
+                                       "extend", "table", "project",
+                                       "finalize", "compact", "pack"]
+
+
+def test_step_memory_tool_on_a_tiny_twopass_cell(tmp_path, capsys):
+    """The same tool on a tiny copy of the twopass50 cell: pass 1's wire
+    step with its fused profile counts, cut as the plain step's stages and
+    the counts."""
+    out = _step_memory_tiny(tmp_path, capsys, "chr22_twopass", "parclip50")
+    assert out["with_counts"]
+    for rec in out["batches"].values():
+        assert list(rec["stages"]) == ["unpack", "orient", "seed_select",
+                                       "extend", "finalize_entries",
+                                       "finalize_select", "pack", "counts"]
